@@ -1,0 +1,331 @@
+"""Statically padded crystal-graph batches (host side) and their transfer.
+
+Own copy of ``torch_m3gnet_tpu.data.graph`` without ``flax.struct``:
+:class:`GraphBatch` is a plain frozen dataclass whose fields are numpy
+arrays on the host, or torch tensors after :func:`to_torch`.
+
+Index/mask conventions:
+- padded nodes/edges/triplets have mask 0; every scatter multiplies by the
+  mask so padding contributes exactly zero,
+- padded edges keep ``edge_src`` sorted (they point at the last node),
+  ``edge_dst = 0`` and a zero cell shift; the model gives them distance
+  ``cutoff`` so r-division is safe,
+- padded graphs get the identity lattice (volume 1) so stress division is safe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import numpy as np
+
+from torch_m3gnet_tpu_torch.data.neighborlist import neighbor_list_pbc
+from torch_m3gnet_tpu_torch.data.structure import Structure
+from torch_m3gnet_tpu_torch.data.triplets import compute_threebody
+
+# Index fields: int32 on the host, contiguous int32 tensors on the device.
+INDEX_FIELDS = (
+    "atom_types", "node_graph", "edge_src", "edge_dst", "triplet_e1",
+    "triplet_e2", "n_node", "triplet_node_k",
+)
+
+
+@dataclass(frozen=True)
+class GraphBatch:
+    """A batch of periodic crystal graphs as one padded set of arrays.
+
+    Shapes: N = padded nodes, E = padded edges, T = padded triplets,
+    B = padded graphs.
+    """
+
+    # nodes
+    positions: Any  # (N, 3) float cartesian, Angstrom
+    atom_types: Any  # (N,) i32, 0-indexed Z
+    node_graph: Any  # (N,) i32 graph id of each node
+    node_mask: Any  # (N,) bool
+
+    # edges: r_ij = pos[dst] + shift @ lattice[graph] - pos[src]
+    edge_src: Any  # (E,) i32, sorted
+    edge_dst: Any  # (E,) i32
+    edge_cell_shift: Any  # (E, 3) float, integer-valued
+    edge_mask: Any  # (E,) bool
+
+    # triplets: ordered pairs of edges sharing a source node
+    triplet_e1: Any  # (T,) i32 edge id of i->j
+    triplet_e2: Any  # (T,) i32 edge id of i->k
+    triplet_mask: Any  # (T,) bool
+
+    # graphs
+    lattice: Any  # (B, 3, 3) float row-wise
+    graph_mask: Any  # (B,) bool
+    n_node: Any  # (B,) i32 real nodes per graph
+
+    # optional targets
+    energy: Optional[Any] = None  # (B,) total energy, eV
+    forces: Optional[Any] = None  # (N, 3) eV/Angstrom
+    stress: Optional[Any] = None  # (B, 6) Voigt [xx,yy,zz,yz,zx,xy], eV/A^3
+
+    # node k = edge_dst[triplet_e2], precomputed at pack time
+    triplet_node_k: Optional[Any] = None  # (T,) i32
+
+    num_graphs_real: int = 0
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.positions.shape[0])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.edge_src.shape[0])
+
+    @property
+    def num_triplets(self) -> int:
+        return int(self.triplet_e1.shape[0])
+
+    @property
+    def num_graphs(self) -> int:
+        return int(self.lattice.shape[0])
+
+    def replace(self, **kwargs: Any) -> "GraphBatch":
+        return dataclasses.replace(self, **kwargs)
+
+
+def graph_from_structure(
+    structure: Structure,
+    cutoff: float,
+    threebody_cutoff: float,
+    dtype=np.float32,
+) -> GraphBatch:
+    """Build a single (unpadded) graph from a crystal structure: full PBC
+    neighbor list at ``cutoff``, triplets among edges within
+    ``threebody_cutoff``, 0-indexed atomic numbers."""
+    if threebody_cutoff > cutoff:
+        raise ValueError("threebody_cutoff must be <= cutoff")
+    edge_index, shift, dist = neighbor_list_pbc(
+        structure.lattice, structure.cart_coords, cutoff
+    )
+    n = len(structure)
+    tei, _, _ = compute_threebody(n, edge_index, dist, threebody_cutoff)
+
+    props = structure.properties
+    energy = props.get("energy")
+    forces = props.get("forces")
+    stress = props.get("stress")
+    if forces is not None:
+        fsize = np.asarray(forces).size
+        if fsize != 3 * n:
+            raise ValueError(
+                f"forces target has {fsize // 3 if fsize % 3 == 0 else fsize / 3} "
+                f"rows for a {n}-atom structure"
+            )
+
+    return GraphBatch(
+        positions=structure.cart_coords.astype(dtype),
+        atom_types=(structure.atomic_numbers - 1).astype(np.int32),
+        node_graph=np.zeros(n, dtype=np.int32),
+        node_mask=np.ones(n, dtype=bool),
+        edge_src=edge_index[0].astype(np.int32),
+        edge_dst=edge_index[1].astype(np.int32),
+        edge_cell_shift=shift.astype(dtype),
+        edge_mask=np.ones(edge_index.shape[1], dtype=bool),
+        triplet_e1=tei[0].astype(np.int32),
+        triplet_e2=tei[1].astype(np.int32),
+        triplet_mask=np.ones(tei.shape[1], dtype=bool),
+        triplet_node_k=edge_index[1][tei[1]].astype(np.int32),
+        lattice=structure.lattice.astype(dtype)[None],
+        graph_mask=np.ones(1, dtype=bool),
+        n_node=np.array([n], dtype=np.int32),
+        energy=None if energy is None else np.asarray([energy], dtype=dtype),
+        forces=None if forces is None else np.asarray(forces, dtype=dtype),
+        stress=None
+        if stress is None
+        else np.asarray(stress, dtype=dtype).reshape(1, 6),
+        num_graphs_real=1,
+    )
+
+
+def _all_or_none(graphs: Sequence[GraphBatch], attr: str) -> bool:
+    vals = [getattr(g, attr) is not None for g in graphs]
+    if all(vals):
+        return True
+    if not any(vals):
+        return False
+    raise ValueError(f"Inconsistent presence of target '{attr}' across graphs")
+
+
+def batch_graphs(graphs: Sequence[GraphBatch]) -> GraphBatch:
+    """Concatenate graphs into one batch: edge endpoints offset by the node
+    count, triplet edge ids by the edge count of preceding graphs."""
+    node_off = 0
+    edge_off = 0
+    graph_off = 0
+    cols: dict[str, list] = {k: [] for k in (
+        "positions", "atom_types", "node_graph", "node_mask",
+        "edge_src", "edge_dst", "edge_cell_shift", "edge_mask",
+        "triplet_e1", "triplet_e2", "triplet_mask", "triplet_node_k",
+        "lattice", "graph_mask", "n_node", "energy", "forces", "stress",
+    )}
+    has = {k: _all_or_none(graphs, k) for k in ("energy", "forces", "stress")}
+
+    for g in graphs:
+        cols["positions"].append(g.positions)
+        cols["atom_types"].append(g.atom_types)
+        cols["node_graph"].append(g.node_graph + graph_off)
+        cols["node_mask"].append(g.node_mask)
+        cols["edge_src"].append(g.edge_src + node_off)
+        cols["edge_dst"].append(g.edge_dst + node_off)
+        cols["edge_cell_shift"].append(g.edge_cell_shift)
+        cols["edge_mask"].append(g.edge_mask)
+        cols["triplet_e1"].append(g.triplet_e1 + edge_off)
+        cols["triplet_e2"].append(g.triplet_e2 + edge_off)
+        cols["triplet_mask"].append(g.triplet_mask)
+        cols["triplet_node_k"].append(
+            (g.triplet_node_k if g.triplet_node_k is not None
+             else np.asarray(g.edge_dst)[np.asarray(g.triplet_e2)]) + node_off
+        )
+        cols["lattice"].append(g.lattice)
+        cols["graph_mask"].append(g.graph_mask)
+        cols["n_node"].append(g.n_node)
+        for k, present in has.items():
+            if present:
+                cols[k].append(getattr(g, k))
+        node_off += g.num_nodes
+        edge_off += g.num_edges
+        graph_off += g.num_graphs
+
+    cat = {k: (np.concatenate(v) if v else None) for k, v in cols.items()}
+    return GraphBatch(**cat, num_graphs_real=sum(g.num_graphs_real for g in graphs))
+
+
+def round_up(x: int, multiple: int) -> int:
+    if multiple <= 1:
+        return max(x, 1)
+    return max(multiple, ((x + multiple - 1) // multiple) * multiple)
+
+
+def pad_batch(
+    batch: GraphBatch,
+    max_nodes: int,
+    max_edges: int,
+    max_triplets: int,
+    max_graphs: int,
+) -> GraphBatch:
+    """Pad a concatenated batch to static bucket sizes with zeroed masks."""
+    n, e, t, b = batch.num_nodes, batch.num_edges, batch.num_triplets, batch.num_graphs
+    if n > max_nodes or e > max_edges or t > max_triplets or b > max_graphs:
+        raise ValueError(
+            f"batch ({n} nodes, {e} edges, {t} triplets, {b} graphs) exceeds bucket "
+            f"({max_nodes}, {max_edges}, {max_triplets}, {max_graphs})"
+        )
+    pn, pe, pt, pb = max_nodes - n, max_edges - e, max_triplets - t, max_graphs - b
+
+    def pad0(a, count):
+        if count == 0:
+            return a
+        widths = [(0, 0)] * a.ndim
+        widths[0] = (0, count)
+        return np.pad(a, widths)
+
+    lattice = pad0(batch.lattice, pb)
+    if pb:
+        lattice[b:] = np.eye(3, dtype=lattice.dtype)
+
+    def pad_last(a, count, value):
+        """Pad an index field with ``value`` so sorted ids STAY sorted — the
+        q_scatter kernel finds each node's edges by binary search; padded
+        rows carry masked-zero data."""
+        if count == 0:
+            return a
+        return np.concatenate([a, np.full(count, value, dtype=a.dtype)])
+
+    return GraphBatch(
+        positions=pad0(batch.positions, pn),
+        atom_types=pad0(batch.atom_types, pn),
+        node_graph=pad_last(batch.node_graph, pn, max_graphs - 1),
+        node_mask=pad0(batch.node_mask, pn),
+        edge_src=pad_last(batch.edge_src, pe, max_nodes - 1),
+        edge_dst=pad0(batch.edge_dst, pe),
+        edge_cell_shift=pad0(batch.edge_cell_shift, pe),
+        edge_mask=pad0(batch.edge_mask, pe),
+        triplet_e1=pad_last(batch.triplet_e1, pt, max_edges - 1),
+        triplet_e2=pad0(batch.triplet_e2, pt),
+        triplet_mask=pad0(batch.triplet_mask, pt),
+        triplet_node_k=None
+        if batch.triplet_node_k is None
+        else pad0(batch.triplet_node_k, pt),
+        lattice=lattice,
+        graph_mask=pad0(batch.graph_mask, pb),
+        n_node=pad0(batch.n_node, pb),
+        energy=None if batch.energy is None else pad0(batch.energy, pb),
+        forces=None if batch.forces is None else pad0(batch.forces, pn),
+        stress=None if batch.stress is None else pad0(batch.stress, pb),
+        num_graphs_real=batch.num_graphs_real,
+    )
+
+
+def pack_structures(
+    structures: Sequence[Structure],
+    cutoff: float,
+    threebody_cutoff: float,
+    max_nodes: int | None = None,
+    max_edges: int | None = None,
+    max_triplets: int | None = None,
+    max_graphs: int | None = None,
+    pad_multiple: int = 128,
+    dtype=np.float32,
+) -> GraphBatch:
+    """Structures -> graphs -> concatenated -> padded batch in one call."""
+    graphs = [graph_from_structure(s, cutoff, threebody_cutoff, dtype=dtype) for s in structures]
+    cat = batch_graphs(graphs)
+    return pad_batch(
+        cat,
+        max_nodes or round_up(cat.num_nodes + 1, pad_multiple),
+        max_edges or round_up(cat.num_edges + 1, pad_multiple),
+        max_triplets or round_up(cat.num_triplets + 1, pad_multiple),
+        max_graphs or cat.num_graphs,
+    )
+
+
+def to_torch(batch, device, dtype=None) -> GraphBatch:
+    """Copy a batch to ``device`` as torch tensors.
+
+    Index fields become contiguous int32 tensors (the CUDA kernels take
+    int32), masks bool tensors, float fields keep their dtype unless
+    ``dtype`` is given. Fields that are already tensors are moved, not
+    copied, when they are in place. Any object with the fields of
+    :class:`GraphBatch` is accepted.
+
+    A host batch is checked once here for what the kernels rely on:
+    ``edge_src`` sorted ascending, every node index in [0, N).
+    """
+    import torch
+
+    if getattr(batch, "halo_send_idx", None) is not None:
+        raise NotImplementedError(
+            "graph-parallel batches (a halo plan) come with the port's parallel slice"
+        )
+    src = batch.edge_src
+    if not isinstance(src, torch.Tensor):
+        src, dst = np.asarray(src), np.asarray(batch.edge_dst)
+        n = int(np.asarray(batch.positions).shape[0])
+        if np.any(np.diff(src) < 0):
+            raise ValueError("edge_src must be sorted ascending")
+        for name, idx in (("edge_src", src), ("edge_dst", dst)):
+            if idx.size and (idx.min() < 0 or idx.max() >= n):
+                raise ValueError(f"{name} holds a node index outside [0, {n})")
+
+    def conv(name, a):
+        if a is None or name == "num_graphs_real":
+            return a
+        if name in INDEX_FIELDS:
+            return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
+        t = torch.as_tensor(a, device=device)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t
+
+    return GraphBatch(
+        **{f.name: conv(f.name, getattr(batch, f.name)) for f in dataclasses.fields(GraphBatch)}
+    )

@@ -1,0 +1,243 @@
+"""The factorized three-body stage: CUDA kernels, plain versions, autograd.
+
+Counterpart of ``torch_m3gnet_tpu.ops.pallas_factorized_stage``. Per block
+the factorized stage (``models/m3gnet.py``) computes
+
+    A[(m,n), i]   = sum_{e: src[e]=i} sh[m, e] * gm[(l_m,n), e]   Q   (E -> N)
+    out[(l,n), e] = sum_{m: l_m=l} sh[m, e] * A[(m,n), src[e]]     R1  (N -> E)
+
+and the VJPs need the companion
+
+    out[m, e]     = sum_n gm[(l_m,n), e] * A[(m,n), src[e]]        R2
+
+with sh the real harmonics (M = l_max^2 rows grouped by degree, so
+l_m = floor(sqrt(m))), gm with LN = l_max*n_max rows and A with
+MN = M*n_max rows, all feature-major (rows, entities). ``src`` is sorted
+ascending with values in [0, N); the kernels rely on both.
+
+Each op has a hand-written CUDA kernel (``csrc/factorized_stage.cu``), a
+plain torch version (``*_plain``) and an ``autograd.Function``. The Function
+runs the kernel on a CUDA tensor and the plain version on a CPU tensor; on
+CUDA there is no fallback. Every op is bilinear in its two tensor operands
+and each one's VJP is written with the other Functions:
+
+    dQ/d(sh) = R2(dA, gm),  dQ/d(gm) = R1(dA, sh)
+    dR1/d(A) = Q(sh, cot),  dR1/d(sh) = R2(A, cot)
+    dR2/d(A) = Q(cot, gm),  dR2/d(gm) = R1(A, cot)
+
+so the family is closed under differentiation and ``create_graph=True``
+works to any order.
+
+``LAUNCHES`` counts the kernel launches of each op (CUDA path only).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from torch_m3gnet_tpu_torch.ops import _cuda
+from torch_m3gnet_tpu_torch.ops.segment import segment_sum_fm, take_fm
+
+# The kernels are instantiated for these sizes (csrc/factorized_stage.cu).
+KERNEL_MAX_L = 4
+KERNEL_MAX_N = 4
+
+LAUNCHES = {"q_scatter": 0, "r1_gather": 0, "r2_gather": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@lru_cache(maxsize=None)
+def _row_maps(l_max: int, n_max: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """For row r = m*n_max + n of the expanded product: sh_rows[r] = m and
+    gm_rows[r] = l_m*n_max + n; also l_idx[m] = l_m."""
+    l_idx = np.concatenate([np.full(2 * ell + 1, ell) for ell in range(l_max)])
+    sh_rows = np.repeat(np.arange(l_max * l_max), n_max)
+    gm_rows = (l_idx[:, None] * n_max + np.arange(n_max)[None, :]).reshape(-1)
+    return sh_rows, gm_rows, l_idx
+
+
+def _index(a: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.long, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the counterparts of q_scatter_xla, r1_gather_xla and
+# r2_gather_xla). The CPU path runs these; on the card they are the
+# reference that chip_smoke.py holds the kernels against.
+# ---------------------------------------------------------------------------
+
+
+def q_scatter_plain(sh, gm, src, num_nodes: int, l_max: int, n_max: int):
+    """(M, E), (LN, E), (E,) -> (MN, num_nodes)."""
+    sh_rows, gm_rows, _ = _row_maps(l_max, n_max)
+    w = sh.index_select(0, _index(sh_rows, sh.device)) * gm.index_select(
+        0, _index(gm_rows, gm.device)
+    )
+    return segment_sum_fm(w, src, num_nodes)
+
+
+def r1_gather_plain(a, sh, src, l_max: int, n_max: int):
+    """(MN, N), (M, E), (E,) -> (LN, E)."""
+    prod = sh[:, None, :] * take_fm(a, src).reshape(l_max * l_max, n_max, -1)
+    return torch.stack(
+        [prod[ell * ell : (ell + 1) * (ell + 1)].sum(0) for ell in range(l_max)]
+    ).reshape(l_max * n_max, -1)
+
+
+def r2_gather_plain(a, gm, src, l_max: int, n_max: int):
+    """(MN, N), (LN, E), (E,) -> (M, E)."""
+    _, _, l_idx = _row_maps(l_max, n_max)
+    g = gm.reshape(l_max, n_max, -1).index_select(0, _index(l_idx, gm.device))
+    return (g * take_fm(a, src).reshape(l_max * l_max, n_max, -1)).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+
+def _check(name, l_max, n_max, src, pairs):
+    """Validate shapes (every path) and, on CUDA, what the kernels take."""
+    if src.dim() != 1:
+        raise ValueError(f"{name}: src must be 1-D, got shape {tuple(src.shape)}")
+    for label, t, shape in pairs:
+        if tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {label} has shape {tuple(t.shape)}, expected {shape} "
+                f"(l_max={l_max}, n_max={n_max}, E={src.shape[0]})"
+            )
+    dev = pairs[0][1].device
+    if dev.type == "cpu":
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for label, t, _ in pairs:
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32 {label}, got {t.dtype}")
+    if src.device != dev:
+        raise ValueError(f"{name}: src is on {src.device}, expected {dev}")
+    if src.dtype != torch.int32 or not src.is_contiguous():
+        raise TypeError(f"{name}: src must be contiguous int32, got {src.dtype}")
+    if not (1 <= l_max <= KERNEL_MAX_L and 1 <= n_max <= KERNEL_MAX_N):
+        raise ValueError(
+            f"{name}: the CUDA kernel is built for l_max, n_max in "
+            f"1..{KERNEL_MAX_L}, got ({l_max}, {n_max})"
+        )
+
+
+def _launch(name, in0, in1, src, out, num_edges, num_nodes, l_max, n_max):
+    if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
+        return out
+    fn = getattr(_cuda.library(), f"m3g_{name}")
+    with torch.cuda.device(out.device):
+        err = fn(
+            in0.data_ptr(), in1.data_ptr(), src.data_ptr(), out.data_ptr(),
+            num_edges, num_nodes, l_max, n_max,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _q_forward(sh, gm, src, num_nodes, l_max, n_max):
+    m, ln, mn, e = l_max * l_max, l_max * n_max, l_max * l_max * n_max, src.shape[0]
+    _check("q_scatter", l_max, n_max, src, [("sh", sh, (m, e)), ("gm", gm, (ln, e))])
+    if sh.device.type == "cpu":
+        return q_scatter_plain(sh, gm, src, num_nodes, l_max, n_max)
+    out = torch.empty((mn, num_nodes), dtype=torch.float32, device=sh.device)
+    return _launch("q_scatter", sh.contiguous(), gm.contiguous(), src, out,
+                   e, num_nodes, l_max, n_max)
+
+
+def _r_forward(name, a, other, src, l_max, n_max):
+    m, ln, mn, e = l_max * l_max, l_max * n_max, l_max * l_max * n_max, src.shape[0]
+    rows_in, rows_out = (m, ln) if name == "r1_gather" else (ln, m)
+    if a.dim() != 2:
+        raise ValueError(f"{name}: A must be 2-D (MN, N), got {tuple(a.shape)}")
+    _check(name, l_max, n_max, src,
+           [("A", a, (mn, a.shape[1])), ("operand", other, (rows_in, e))])
+    if a.device.type == "cpu":
+        plain = r1_gather_plain if name == "r1_gather" else r2_gather_plain
+        return plain(a, other, src, l_max, n_max)
+    out = torch.empty((rows_out, e), dtype=torch.float32, device=a.device)
+    return _launch(name, a.contiguous(), other.contiguous(), src, out,
+                   e, a.shape[1], l_max, n_max)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class QScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sh, gm, src, num_nodes, l_max, n_max):
+        ctx.save_for_backward(sh, gm, src)
+        ctx.sizes = (l_max, n_max)
+        return _q_forward(sh, gm, src, num_nodes, l_max, n_max)
+
+    @staticmethod
+    def backward(ctx, d_a):
+        sh, gm, src = ctx.saved_tensors
+        l_max, n_max = ctx.sizes
+        d_sh = r2_gather(d_a, gm, src, l_max, n_max) if ctx.needs_input_grad[0] else None
+        d_gm = r1_gather(d_a, sh, src, l_max, n_max) if ctx.needs_input_grad[1] else None
+        return d_sh, d_gm, None, None, None, None
+
+
+class R1Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, sh, src, l_max, n_max):
+        ctx.save_for_backward(a, sh, src)
+        ctx.sizes = (l_max, n_max)
+        return _r_forward("r1_gather", a, sh, src, l_max, n_max)
+
+    @staticmethod
+    def backward(ctx, cot):
+        a, sh, src = ctx.saved_tensors
+        l_max, n_max = ctx.sizes
+        d_a = q_scatter(sh, cot, src, a.shape[1], l_max, n_max) if ctx.needs_input_grad[0] else None
+        d_sh = r2_gather(a, cot, src, l_max, n_max) if ctx.needs_input_grad[1] else None
+        return d_a, d_sh, None, None, None
+
+
+class R2Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, gm, src, l_max, n_max):
+        ctx.save_for_backward(a, gm, src)
+        ctx.sizes = (l_max, n_max)
+        return _r_forward("r2_gather", a, gm, src, l_max, n_max)
+
+    @staticmethod
+    def backward(ctx, cot):
+        a, gm, src = ctx.saved_tensors
+        l_max, n_max = ctx.sizes
+        d_a = q_scatter(cot, gm, src, a.shape[1], l_max, n_max) if ctx.needs_input_grad[0] else None
+        d_gm = r1_gather(a, cot, src, l_max, n_max) if ctx.needs_input_grad[1] else None
+        return d_a, d_gm, None, None, None
+
+
+def q_scatter(sh, gm, src, num_nodes: int, l_max: int, n_max: int) -> torch.Tensor:
+    """A = Q(sh, gm): (M, E), (LN, E), sorted int32 (E,) -> (MN, num_nodes)."""
+    return QScatter.apply(sh, gm, src, num_nodes, l_max, n_max)
+
+
+def r1_gather(a, sh, src, l_max: int, n_max: int) -> torch.Tensor:
+    """R1(A, sh): (MN, N), (M, E), sorted int32 (E,) in [0, N) -> (LN, E)."""
+    return R1Gather.apply(a, sh, src, l_max, n_max)
+
+
+def r2_gather(a, gm, src, l_max: int, n_max: int) -> torch.Tensor:
+    """R2(A, gm): (MN, N), (LN, E), sorted int32 (E,) in [0, N) -> (M, E)."""
+    return R2Gather.apply(a, gm, src, l_max, n_max)
