@@ -2,8 +2,9 @@
 JAX package's, at f64: values and first derivatives (torch.autograd.grad of
 a weighted sum against jax.grad of the same sum) to 1e-10.
 
-The radii cover the small-z series branch of the Bessel functions, the
-recurrence branch, the sinc at 0 and the cutoff's zero beyond rc.
+Cosines for the Legendre polynomials span [-1, 1]. The radii cover the
+small-z series branch of the Bessel functions, the recurrence branch, the
+sinc at 0 and the cutoff's zero beyond rc.
 """
 
 import jax
@@ -34,6 +35,9 @@ CASES = {
         lambda r: jb.smooth_radial_basis_fm(r, N_MAX, RC),
         lambda r: tb.smooth_radial_basis_fm(r, N_MAX, RC),
     ),
+    "legendre_cos_all": (
+        lambda x: jb.legendre_cos_all(x, 4), lambda x: tb.legendre_cos_all(x, 4)
+    ),
     "real_racah_harmonics_fm": (
         lambda u: jb.real_racah_harmonics_fm(u / jnp.linalg.norm(u, axis=0), 4),
         lambda u: tb.real_racah_harmonics_fm(u / torch.linalg.norm(u, dim=0), 4),
@@ -47,6 +51,8 @@ def _inputs(name):
         u = rng.standard_normal((3, 64))
         u[:, 0] = [0.0, 0.0, 1.0]  # the pole
         return u
+    if name == "legendre_cos_all":
+        return np.concatenate([[-1.0, 0.0, 1.0], rng.uniform(-1.0, 1.0, 61)])
     return np.concatenate([[0.0, 1e-3, 0.3, 0.5, 4.0, 5.0, 5.5], rng.uniform(0.01, 6.0, 57)])
 
 

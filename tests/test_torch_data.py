@@ -57,3 +57,29 @@ def test_to_torch_index_fields_are_int32_and_checked(al_fcc, na_bcc):
     out_of_range = batch.replace(edge_dst=batch.edge_dst + batch.num_nodes)
     with pytest.raises(ValueError, match="outside"):
         to_torch(out_of_range, "cpu")
+
+
+@pytest.mark.parametrize(
+    "field, shift, match",
+    [
+        ("triplet_e1", "reverse", "triplet_e1 must be sorted"),
+        ("triplet_e1", "past-end", "triplet_e1 holds an edge index outside"),
+        ("triplet_e2", "past-end", "triplet_e2 holds an edge index outside"),
+        ("triplet_e2", "negative", "triplet_e2 holds an edge index outside"),
+    ],
+    ids=["e1-unsorted", "e1-range", "e2-range", "e2-negative"],
+)
+def test_to_torch_checks_triplet_indices(al_fcc, field, shift, match):
+    """The fused-triplet kernel searches the sorted triplet_e1 and both
+    triplet kernels index edges by e1 and e2: a host batch that breaks
+    either is refused before it reaches a device."""
+    batch = pack_structures([_port_structure(al_fcc)], 5.0, 4.0)
+    idx = getattr(batch, field)
+    bad = {
+        "reverse": idx[::-1].copy(),
+        "past-end": idx + batch.num_edges,
+        "negative": idx - batch.num_edges,
+    }[shift]
+    to_torch(batch, "cpu")  # the packed batch itself passes
+    with pytest.raises(ValueError, match=match):
+        to_torch(batch.replace(**{field: bad}), "cpu")

@@ -154,7 +154,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "torch_m3gnet_tpu"))
 print(len(names), bad)
-assert len(names) >= 12 and not bad, bad
+assert not bad, bad
+for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "models.m3gnet"):
+    assert pkg.__name__ + "." + name in names, name
+assert len(names) >= 14, names
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=Path(__file__).resolve().parent.parent)

@@ -3,8 +3,10 @@
 Weights come from the JAX model's Flax tree through
 ``torch_m3gnet_tpu_torch.models.params_from_flax``; the batches are the JAX
 package's own ``pack_structures`` output, so both sides see identical
-inputs. The JAX side runs its factorized feature-major path on the CPU
-(XLA segment ops); the port runs the plain versions of its kernels.
+inputs. The JAX side runs on the CPU: its factorized feature-major path
+(XLA segment ops), its gather mode (XLA take/segment_sum) and its fused mode
+(the Pallas kernels in TPU interpret mode, as the JAX tests run them); the
+port runs the plain versions of its kernels.
 """
 
 from pathlib import Path
@@ -36,15 +38,27 @@ def _perturbed(s, seed, scale=0.05):
     )
 
 
-def _both(kw, batch, stress_mode, dtype):
-    """(JAX output, port output) for one config and batch, same weights."""
-    jpot = jax_build_model(
-        JaxConfig(threebody_mode="factorized", layout="fm", **kw), stress_mode=stress_mode
-    )
+FACTORIZED = dict(threebody_mode="factorized", layout="fm")
+
+
+@pytest.fixture
+def interpret():
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+def _both(kw, batch, stress_mode, dtype, jax_mode=FACTORIZED, port_mode=None):
+    """(JAX output, port output) for one config and batch, same weights.
+    ``jax_mode``/``port_mode``: the three-body settings of each side (the
+    port takes the JAX side's unless given)."""
+    jpot = jax_build_model(JaxConfig(**jax_mode, **kw), stress_mode=stress_mode)
     params = jpot.init(jax.random.PRNGKey(0), batch)
     want = jpot.apply(params, batch)
 
-    pot = build_model(M3GNetConfig(**kw), stress_mode=stress_mode, device="cpu").to(dtype)
+    cfg = M3GNetConfig(**(jax_mode if port_mode is None else port_mode), **kw)
+    pot = build_model(cfg, stress_mode=stress_mode, device="cpu").to(dtype)
     pot.model.load_state_dict(
         params_from_flax(jax.tree.map(np.asarray, params), dtype=dtype)
     )
@@ -100,17 +114,108 @@ def test_build_model_without_device_needs_cuda():
         build_model(M3GNetConfig())
 
 
+def _assert_close_to_max(got, want, rel):
+    """Each field within ``rel`` of its largest magnitude."""
+    for name in FIELDS:
+        g = getattr(got, name).detach().numpy()
+        w = np.asarray(getattr(want, name))
+        assert g.dtype == np.float32 and np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, rtol=0, atol=rel * np.abs(w).max(), err_msg=name)
+
+
+def test_fused_matches_jax_fused_f32(interpret, al_fcc, tio2_rutile):
+    """Fused mode, f32, small width, against JAX's fused mode (its Pallas
+    kernels in interpret mode): the same per-triplet stage, sums in other
+    orders: 2e-5 of each field's largest magnitude."""
+    batch = jax_pack([_perturbed(al_fcc, 0), _perturbed(tio2_rutile, 1)], 5.0, 4.0,
+                     pad_multiple=64)
+    want, got, _, pot = _both(SMALL, batch, "strain", torch.float32,
+                              jax_mode=dict(fused_triplets="on"))
+    assert pot.model.threebody_mode == "fused"
+    _assert_close_to_max(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("pair", [("al_fcc", "na_bcc"), ("tio2_rutile", "al_fcc")])
+def test_gather_matches_jax_gather_f64(request, pair):
+    """Gather mode at f64 against JAX's gather mode at f64 (JAX's fused mode
+    casts its stage to f32 even in f64, so f64 parity is held against
+    gather): summation order only, rtol 1e-9 (atol 1e-12 near 0)."""
+    structs = [_perturbed(request.getfixturevalue(n), seed=i) for i, n in enumerate(pair)]
+    batch = jax_pack(structs, 5.0, 4.0, pad_multiple=64, dtype=np.float64)
+    want, got, _, pot = _both(SMALL, batch, "strain", torch.float64,
+                              jax_mode=dict(threebody_mode="gather"))
+    assert pot.model.threebody_mode == "gather"
+    for name in FIELDS:
+        np.testing.assert_allclose(getattr(got, name).detach().numpy(),
+                                   np.asarray(getattr(want, name)),
+                                   rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("stress_mode", ["strain", "virial"])
+def test_triplet_modes_match_factorized_f64(al_fcc, tio2_rutile, stress_mode):
+    """Inside the port, same weights: the fused and gather modes compute the
+    factorized mode's function (the factorized stage only subtracts the
+    analytic j = k diagonal), to rtol 1e-9 at f64 (atol 1e-12 near 0)."""
+    batch = jax_pack([_perturbed(al_fcc, 0), _perturbed(tio2_rutile, 1)], 5.0, 4.0,
+                     pad_multiple=64, dtype=np.float64)
+    gen = torch.Generator()
+    pots = {
+        mode: build_model(M3GNetConfig(threebody_mode=mode, **SMALL), stress_mode=stress_mode,
+                          device="cpu", generator=gen.manual_seed(2)).double()
+        for mode in ("factorized", "fused", "gather")
+    }
+    outs = {mode: pot(batch) for mode, pot in pots.items()}
+    for mode in ("fused", "gather"):
+        for name in FIELDS:
+            np.testing.assert_allclose(getattr(outs[mode], name).detach().numpy(),
+                                       getattr(outs["factorized"], name).detach().numpy(),
+                                       rtol=1e-9, atol=1e-12, err_msg=f"{mode} {name}")
+
+
+def test_fused_matches_jax_fused_f32_full_width(interpret, al_fcc, na_bcc):
+    """Fused mode at the default width (227,549 parameters), f32, against
+    JAX's fused mode: 2e-5 of each field's largest magnitude, as the
+    factorized full-width test."""
+    batch = jax_pack([_perturbed(al_fcc, 0), _perturbed(na_bcc, 1)], 5.0, 4.0, pad_multiple=64)
+    want, got, n_jax, pot = _both({}, batch, "strain", torch.float32,
+                                  jax_mode=dict(threebody_mode="fused"))
+    assert n_jax == 227_549 and pot.model.threebody_mode == "fused"
+    _assert_close_to_max(got, want, 2e-5)
+
+
 @pytest.mark.parametrize(
-    "kw",
+    "kw, mode",
     [
-        dict(threebody_mode="gather"),
-        dict(threebody_mode="fused"),
-        dict(fused_triplets="on"),
-        dict(fused_triplets="off"),
-        dict(compute_dtype="bfloat16"),
+        (dict(threebody_mode="gather"), "gather"),
+        (dict(threebody_mode="fused"), "fused"),
+        (dict(fused_triplets="on"), "fused"),
+        (dict(fused_triplets="off"), "gather"),
     ],
-    ids=["gather", "fused", "legacy-fused", "legacy-gather", "bf16"],
+    ids=["gather", "fused", "legacy-fused", "legacy-gather"],
 )
+def test_triplet_modes_resolve_and_evaluate(al_fcc, kw, mode):
+    """The three-body knobs resolve as the JAX package's build_model does,
+    and the resolved mode evaluates E/F/S on the CPU."""
+    pot = build_model(M3GNetConfig(**kw, **SMALL), device="cpu")
+    assert pot.model.threebody_mode == mode
+    batch = jax_pack([_perturbed(al_fcc, 0)], 5.0, 4.0, pad_multiple=64)
+    out = pot(batch)
+    assert tuple(out.forces.shape) == (batch.num_nodes, 3)
+    assert tuple(out.stress.shape) == (batch.num_graphs, 6)
+    for name in FIELDS:
+        assert torch.isfinite(getattr(out, name)).all(), name
+
+
+def test_auto_mode_resolves_to_factorized():
+    assert build_model(M3GNetConfig(**SMALL), device="cpu").model.threebody_mode == "factorized"
+    for mode in ("gather", "fused"):
+        with pytest.raises(ValueError, match="layout='fm' requires"):
+            build_model(M3GNetConfig(threebody_mode=mode, layout="fm"), device="cpu")
+    with pytest.raises(ValueError, match="unknown threebody_mode"):
+        build_model(M3GNetConfig(threebody_mode="pairwise"), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16")], ids=["bf16"])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(M3GNetConfig(**kw), device="cpu")

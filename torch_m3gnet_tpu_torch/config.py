@@ -2,10 +2,10 @@
 
 The dataclass is an own copy, field for field, so ``configs/*.yaml`` load
 into either package. Fields that exist only for the TPU build are accepted
-and ignored by this port: ``layout``, ``fused_factorized``,
-``pallas_segment``, ``fuse_gated_second``, ``matmul_precision``,
-``fused_triplets`` and ``bucket_classes``. The port always runs the
-factorized three-body stage in feature-major form with full-f32 matmuls.
+and ignored by this port: ``fused_factorized``, ``pallas_segment``,
+``fuse_gated_second``, ``matmul_precision`` and ``bucket_classes``; of
+``layout`` only the check that ``"fm"`` goes with the factorized mode is
+kept. The port always computes feature-major with full-f32 matmuls.
 """
 
 from __future__ import annotations
@@ -74,13 +74,14 @@ class M3GNetConfig:
     num_devices: int = 1
     # Ignored by the port (TPU Pallas segment-sum knob).
     pallas_segment: str = "auto"
-    # Legacy three-body knob: "on" selects the fused mode, which the port
-    # does not have yet.
+    # Legacy three-body knob, read when threebody_mode is "auto": "on" selects
+    # the fused mode, "off" the gather mode.
     fused_triplets: str = "auto"
-    # "auto" and "factorized" run the factorized stage; "gather" and
-    # "fused" are later slices of the port.
+    # "factorized", "fused" or "gather"; "auto" resolves through
+    # fused_triplets, else to "factorized" (models.build_model).
     threebody_mode: str = "auto"
-    # Ignored by the port: activations are always feature-major.
+    # Activations are always feature-major; "fm" only requires the
+    # factorized mode, as in the JAX package.
     layout: str = "auto"
 
     def replace(self, **kwargs: Any) -> "M3GNetConfig":

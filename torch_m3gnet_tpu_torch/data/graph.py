@@ -298,7 +298,8 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
     :class:`GraphBatch` is accepted.
 
     A host batch is checked once here for what the kernels rely on:
-    ``edge_src`` sorted ascending, every node index in [0, N).
+    ``edge_src`` sorted ascending, every node index in [0, N);
+    ``triplet_e1`` sorted ascending, every edge index in [0, E).
     """
     import torch
 
@@ -315,6 +316,12 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
         for name, idx in (("edge_src", src), ("edge_dst", dst)):
             if idx.size and (idx.min() < 0 or idx.max() >= n):
                 raise ValueError(f"{name} holds a node index outside [0, {n})")
+        e1, e2 = np.asarray(batch.triplet_e1), np.asarray(batch.triplet_e2)
+        if np.any(np.diff(e1) < 0):
+            raise ValueError("triplet_e1 must be sorted ascending")
+        for name, idx in (("triplet_e1", e1), ("triplet_e2", e2)):
+            if idx.size and (idx.min() < 0 or idx.max() >= src.size):
+                raise ValueError(f"{name} holds an edge index outside [0, {src.size})")
 
     def conv(name, a):
         if a is None or name == "num_graphs_real":

@@ -1,9 +1,19 @@
-"""The M3GNet potential in PyTorch: factorized three-body stage, feature-major.
+"""The M3GNet potential in PyTorch, feature-major.
 
-Counterpart of ``torch_m3gnet_tpu.models.m3gnet`` on the path its
-``build_model`` takes on the accelerator: ``threebody_mode="factorized"``,
-``layout="fm"`` and the fused factorized-stage kernels (``_forward_fm`` and
-``_apply_fm`` there). Every E/N-scale activation is (features, entities).
+Counterpart of ``torch_m3gnet_tpu.models.m3gnet``. Every E/N/T-scale
+activation is (features, entities). The three-body stage runs in one of the
+JAX package's three modes, which compute the same function:
+
+- ``"factorized"`` (``_forward_fm`` there): per-edge factors only, nothing
+  at triplet scale, through ``ops.factorized_stage``;
+- ``"fused"`` (``_forward_em`` with ``fused_triplets``): the per-triplet
+  basis, with the triplet geometry read through ``ops.windowed_take`` and
+  the gate gathered and summed back to edges by ``ops.fused_triplet``;
+- ``"gather"`` (``_forward_em``): the same per-triplet stage through plain
+  index ops (``index_select``/``index_add``), as JAX runs it through XLA's.
+
+The kernel ops run their hand-written CUDA kernels on a CUDA device and
+their plain versions on the CPU.
 
 - :func:`edge_vectors_fm` builds the (3, E) pair vectors from positions,
   cell shifts and lattices;
@@ -11,9 +21,6 @@ Counterpart of ``torch_m3gnet_tpu.models.m3gnet`` on the path its
 - :class:`M3GNetPotential` takes ONE backward pass with respect to the edge
   vectors, from which forces and stress are assembled;
 - :func:`build_model` assembles a potential from a config on a device.
-
-The three-body stage runs through ``ops.factorized_stage``: the hand-written
-CUDA kernels on a CUDA device, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -31,12 +38,17 @@ from torch_m3gnet_tpu_torch.data.graph import GraphBatch, to_torch
 from torch_m3gnet_tpu_torch.models.layers import DenseFM, Embed, GatedMLPFM
 from torch_m3gnet_tpu_torch.ops.basis import (
     cutoff_poly,
+    legendre_cos_all,
     normalized_spherical_bessel,
     real_racah_harmonics_fm,
     smooth_radial_basis_fm,
 )
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
+from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
+from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
+
+THREEBODY_MODES = ("factorized", "fused", "gather")
 
 
 @dataclass(frozen=True)
@@ -85,9 +97,13 @@ class M3GNet(nn.Module):
         elemental_energies: Sequence[float] = (),
         energy_scale: float = 1.0,
         length_scale: float = 1.0,
+        threebody_mode: str = "factorized",
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        if threebody_mode not in THREEBODY_MODES:
+            raise ValueError(f"unknown threebody_mode: {threebody_mode}")
+        self.threebody_mode = threebody_mode
         self.cutoff = cutoff
         self.threebody_cutoff = threebody_cutoff
         self.l_max = l_max
@@ -122,11 +138,9 @@ class M3GNet(nn.Module):
     def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor):
         """Returns (per-graph energy (B,), per-atom energy (N,)), both in eV."""
         dtype = r_vec_fm.dtype
-        l_max, n_max = self.l_max, self.n_max
-        ln = l_max * n_max
+        n_max = self.n_max
         rc = self.cutoff / self.length_scale
-        rc3 = self.threebody_cutoff / self.length_scale
-        num_nodes, num_edges = graph.num_nodes, graph.num_edges
+        num_nodes = graph.num_nodes
         src, dst = graph.edge_src, graph.edge_dst
         node_mask = graph.node_mask.to(dtype)
         edge_mask = graph.edge_mask.to(dtype)
@@ -143,22 +157,10 @@ class M3GNet(nn.Module):
         ew_fm = smooth_radial_basis_fm(dist, n_max, rc)  # (n, E)
         e_fm = F.silu(self.edge_init(ew_fm))  # (D, E)
 
-        # --- factorized three-body factors, per edge
-        u_fm = r_fm / dist[None, :]  # padded edges: dist = rc > 0
-        sh_fm = real_racah_harmonics_fm(u_fm, l_max)  # (M, E)
-        chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max)  # (l, n, E)
-        fc_e = cutoff_poly(dist, rc3) * edge_mask  # (E,): zero on padded edges
-        chifc = (chi_fm * fc_e).reshape(ln, num_edges)
-        fcn = torch.stack([c * fc_e for c in self.sph_norm])  # (l, E)
-        fcn = fcn[:, None, :].expand(l_max, n_max, num_edges).reshape(ln, num_edges)
-
-        def triplet_aggregate(gate_fm):
-            # A padded edge has gm = 0 (fc_e carries the edge mask), so it
-            # adds nothing to A and its own output is scaled by fcn = 0.
-            g = chifc * take_fm(gate_fm, dst)  # (ln, E)
-            a = q_scatter(sh_fm, g, src, num_nodes, l_max, n_max)  # (M*n, N)
-            proj = r1_gather(a, sh_fm, src, l_max, n_max)  # (ln, E)
-            return fcn * (proj - g)
+        if self.threebody_mode == "factorized":
+            triplet_aggregate = self._factorized_stage(graph, r_fm, dist)
+        else:
+            triplet_aggregate = self._triplet_stage(graph, r_fm, dist)
 
         # --- interaction blocks
         for b in range(self.num_blocks):
@@ -184,6 +186,70 @@ class M3GNet(nn.Module):
         scaled_total = segment_sum(scaled_atomic, graph.node_graph, graph.num_graphs)
         total = self.energy_scale * scaled_total * graph.graph_mask.to(dtype)
         return total, self.energy_scale * scaled_atomic
+
+    def _factorized_stage(self, graph: GraphBatch, r_fm, dist):
+        """The factorized three-body stage: gate (LN, N) -> (LN, E), from
+        per-edge factors only (the j = k diagonal that the triplet
+        enumeration excludes is subtracted analytically, P_l(1) = 1)."""
+        l_max, n_max = self.l_max, self.n_max
+        ln, num_edges = l_max * n_max, graph.num_edges
+        rc = self.cutoff / self.length_scale
+        rc3 = self.threebody_cutoff / self.length_scale
+        src, dst = graph.edge_src, graph.edge_dst
+        u_fm = r_fm / dist[None, :]  # padded edges: dist = rc > 0
+        sh_fm = real_racah_harmonics_fm(u_fm, l_max)  # (M, E)
+        chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max)  # (l, n, E)
+        fc_e = cutoff_poly(dist, rc3) * graph.edge_mask.to(dist.dtype)  # zero on padded edges
+        chifc = (chi_fm * fc_e).reshape(ln, num_edges)
+        fcn = torch.stack([c * fc_e for c in self.sph_norm])  # (l, E)
+        fcn = fcn[:, None, :].expand(l_max, n_max, num_edges).reshape(ln, num_edges)
+
+        def triplet_aggregate(gate_fm):
+            # A padded edge has gm = 0 (fc_e carries the edge mask), so it
+            # adds nothing to A and its own output is scaled by fcn = 0.
+            g = chifc * take_fm(gate_fm, dst)  # (ln, E)
+            a = q_scatter(sh_fm, g, src, graph.num_nodes, l_max, n_max)  # (M*n, N)
+            proj = r1_gather(a, sh_fm, src, l_max, n_max)  # (ln, E)
+            return fcn * (proj - g)
+
+        return triplet_aggregate
+
+    def _triplet_stage(self, graph: GraphBatch, r_fm, dist):
+        """The per-triplet three-body stage (fused or gather): gate (LN, N)
+        -> (LN, E) with out[:, e] = sum_{t: e1[t]=e} basis[:, t] *
+        gate[:, k(t)], basis (LN, T) = chi_ln(r_ik) c_l P_l(cos jik)
+        fc(r_ij) fc(r_ik), zeroed on padded triplets."""
+        l_max, n_max = self.l_max, self.n_max
+        num_edges = graph.num_edges
+        rc = self.cutoff / self.length_scale
+        rc3 = self.threebody_cutoff / self.length_scale
+        e1, e2, dst = graph.triplet_e1, graph.triplet_e2, graph.edge_dst
+        fused = self.threebody_mode == "fused"
+        take = windowed_take_fm if fused else take_fm
+
+        # T-scale geometry from the packed [x, y, z, |r|] rows of each edge.
+        geom_fm = torch.cat([r_fm, dist[None, :]], 0)  # (4, E)
+        g1, g2 = take(geom_fm, e1), take(geom_fm, e2)  # (4, T)
+        rij, rik = g1[3], g2[3]  # padded triplets: rij = rc > 0 (e1 is a padded edge)
+        cos_jik = torch.clamp((g1[:3] * g2[:3]).sum(0) / (rij * rik), -1.0, 1.0)
+        fc = cutoff_poly(rij, rc3) * cutoff_poly(rik, rc3)  # (T,)
+        sph = legendre_cos_all(cos_jik, l_max) * cos_jik.new_tensor(self.sph_norm)[:, None]
+        chi = normalized_spherical_bessel(rik, rc, l_max, n_max)  # (l, n, T)
+        # The mask stays: padded triplets point at real edges (e2 = 0), and
+        # it is what zeroes their gradient.
+        basis_fm = (chi * sph[:, None, :] * fc).reshape(l_max * n_max, -1)
+        basis_fm = basis_fm * graph.triplet_mask.to(basis_fm.dtype)
+
+        if fused:
+            # gate pre-gathered node -> edge (E-scale); the kernel's T-scale
+            # reads of it by e2 are then window-local.
+            return lambda gate_fm: fused_triplet_gate_sum(
+                basis_fm, take_fm(gate_fm, dst), e1, e2, num_edges
+            )
+        node_k = graph.triplet_node_k
+        if node_k is None:
+            node_k = dst.index_select(0, e2)
+        return lambda gate_fm: segment_sum_fm(basis_fm * take_fm(gate_fm, node_k), e1, num_edges)
 
 
 def _voigt(t: torch.Tensor) -> torch.Tensor:
@@ -275,20 +341,28 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
 
     Weights are drawn on the CPU from ``generator`` (Flax's initialisers:
     lecun-normal kernels, zero biases) and then moved, so one seed gives the
-    same weights on every device. This slice runs the factorized three-body
-    stage in f32 or f64 on one device; the modes it does not have raise.
+    same weights on every device, and in every three-body mode (the modes
+    share one parameter tree). The model computes in f32 or f64 on one
+    device.
+
+    The three-body mode resolves as the JAX package's ``build_model`` does:
+    ``threebody_mode`` wins when set; under ``"auto"`` the legacy knob
+    ``fused_triplets`` wins when set (``"on"`` -> fused, ``"off"`` ->
+    gather), and otherwise ``"auto"`` means ``"factorized"`` on the card
+    and on the CPU alike (JAX picks gather on its CPU; the port keeps one
+    default so that the card and its CPU reference run the same path).
+    ``layout="fm"`` with a per-triplet mode raises, as in JAX.
     """
     mode = config.threebody_mode
-    if mode == "auto" and config.fused_triplets != "auto":
-        # the legacy knob set explicitly wins, as the JAX package resolves it
-        mode = "fused" if config.fused_triplets == "on" else "gather"
-    if mode in ("gather", "fused"):
-        raise NotImplementedError(
-            f"threebody_mode={mode!r} comes with a later slice of the port "
-            "('gather' next, 'fused' with the fused-triplet kernels B4-B7)"
-        )
-    if mode not in ("auto", "factorized"):
+    if mode == "auto":
+        if config.fused_triplets != "auto":
+            mode = "fused" if config.fused_triplets == "on" else "gather"
+        else:
+            mode = "factorized"
+    if mode not in THREEBODY_MODES:
         raise ValueError(f"unknown threebody_mode: {mode}")
+    if config.layout == "fm" and mode != "factorized":
+        raise ValueError("layout='fm' requires threebody_mode='factorized'")
     if config.compute_dtype not in ("float32", None):
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r} comes with a later slice "
@@ -310,6 +384,7 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         elemental_energies=tuple(elemental_energies or ()),
         energy_scale=energy_scale,
         length_scale=length_scale,
+        threebody_mode=mode,
         generator=generator,
     )
     return M3GNetPotential(model, stress_mode=stress_mode).to(device)

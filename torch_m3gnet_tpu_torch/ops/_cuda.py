@@ -1,10 +1,11 @@
 """Lazy ``nvcc`` build and ``ctypes`` binding of the port's CUDA kernels.
 
-The kernels under ``csrc/`` are compiled for ``sm_90a`` into a shared
-library with a plain C interface at the first CUDA call, never at import.
-The library goes to ``_build/`` beside the package (listed in
-``.gitignore``), named by a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` into one shared library with
+a plain C interface at the first CUDA call, never at import: one ``nvcc``
+per source, all started together, then one link. The library goes to
+``_build/`` beside the package (listed in ``.gitignore``), named by a hash
+of all the sources, so an edited source is rebuilt and an unchanged set is
+loaded as it is.
 """
 
 from __future__ import annotations
@@ -23,10 +24,22 @@ BUILD_DIR = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-# C entry points: (in0, in1, src, out, num_edges, num_nodes, l_max, n_max,
-# stream) -> cudaError_t as int.
-_ENTRY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_ENTRIES = ("m3g_q_scatter", "m3g_r1_gather", "m3g_r2_gather")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types; every entry returns cudaError_t as int
+# and takes the stream last.
+_ENTRIES = {
+    # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, stream)
+    "m3g_q_scatter": [_P] * 4 + [_I] * 4 + [_P],
+    "m3g_r1_gather": [_P] * 4 + [_I] * 4 + [_P],
+    "m3g_r2_gather": [_P] * 4 + [_I] * 4 + [_P],
+    # (data or vals, idx, out, rows, num_cols, num_idx, stream)
+    "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
+    "m3g_windowed_scatter": [_P] * 3 + [_I] * 3 + [_P],
+    # (basis, gate, e1, e2, out, rows, num_edges, num_trip, stream)
+    "m3g_fused_triplet_gate_sum": [_P] * 5 + [_I] * 3 + [_P],
+    # (basis, gate, g, e1, e2, d_basis, d_gate, rows, num_edges, num_trip, stream)
+    "m3g_backward_pair": [_P] * 7 + [_I] * 3 + [_P],
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,28 +59,53 @@ def _nvcc() -> str:
     return found
 
 
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> Path:
-    """Compile ``csrc/factorized_stage.cu`` into ``_build/`` unless the same
-    source was built before; returns the library path. The compiler's report
-    (``-Xptxas -v``: registers, spills) is kept beside it as ``<lib>.log``."""
-    src = CSRC / "factorized_stage.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    """Compile every ``csrc/*.cu`` into one library in ``_build/`` unless the
+    same sources were built before; returns the library path. The
+    compilers' reports (``-Xptxas -v``: registers, spills) are kept beside
+    it as ``<lib>.log``."""
+    srcs = sources()
+    digest = hashlib.sha256()
+    for src in srcs:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    lib = BUILD_DIR / f"libm3g_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp), str(src),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src}:\n{proc.stderr[-4000:]}"
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [lib.with_name(f"{lib.stem}.{src.stem}.{tag}.o") for src in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(srcs, objs)
+    ]
+    reports = [(src, proc.communicate()[0], proc.returncode) for src, proc in zip(srcs, procs)]
+    tmp = lib.with_name(f"{lib.name}.{tag}")
+    failed = [(src, out) for src, out, rc in reports if rc != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        reports.append(("link", link.stdout + link.stderr, link.returncode))
+        if link.returncode != 0:
+            failed = [("link", link.stdout + link.stderr)]
+    lib.with_suffix(".so.log").write_text(
+        "".join(f"== {src}\n{out}" for src, out, _ in reports)
+    )
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        src, out = failed[0]
+        raise RuntimeError(f"nvcc failed building {src}:\n{out[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
@@ -78,9 +116,48 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name in _ENTRIES:
+            for name, argtypes in _ENTRIES.items():
                 fn = getattr(lib, name)
-                fn.argtypes = _ENTRY_ARGTYPES
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def is_cuda(name: str, floats, indices) -> bool:
+    """True for the kernel path, False for the CPU (plain) path.
+
+    ``floats`` and ``indices`` are (label, tensor) pairs. Raises for what no
+    kernel takes: a device other than the CPU or CUDA, operands on
+    different devices, and on CUDA a float type other than float32 or
+    indices that are not contiguous int32."""
+    import torch
+
+    dev = floats[0][1].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for label, t in [*floats, *indices]:
+        if t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
+    for label, t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32 {label}, got {t.dtype}")
+    for label, t in indices:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{name}: {label} must be contiguous int32, got {t.dtype}")
+    return True
+
+
+def launch(counts: dict, name: str, entry: str, device, *args) -> None:
+    """Call C entry ``entry`` with ``args`` (pointers and sizes as ints) on
+    the current stream of ``device``, raise on a CUDA error, and add one to
+    ``counts[name]``."""
+    import torch
+
+    with torch.cuda.device(device):
+        err = getattr(library(), entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    counts[name] += 1

@@ -1,12 +1,14 @@
 """Radial/angular basis functions as plain, differentiable torch code.
 
-Counterpart of ``torch_m3gnet_tpu.ops.basis`` (feature-major forms only,
-which the factorized model uses):
+Counterpart of ``torch_m3gnet_tpu.ops.basis`` (feature-major forms only:
+the new axis of l, n or m comes first):
 
 - smooth radial basis: the Kocer two-sinc + Gram-Schmidt recursion;
 - spherical Bessel j_l via upward recurrence with a small-z Taylor series;
 - normalized spherical Bessel chi_ln;
 - smooth polynomial cutoff;
+- Legendre polynomials P_l(cos theta) by Bonnet's recursion (the triplet
+  modes' angular basis);
 - real Racah-normalized harmonics, whose products give P_l(cos theta) by the
   addition theorem;
 - spherical Bessel zeros by interlaced root bracketing (scipy, own copy).
@@ -74,6 +76,17 @@ def cutoff_poly(r: torch.Tensor, cutoff: float) -> torch.Tensor:
     u = r / cutoff
     val = 1.0 - 6.0 * u**5 + 15.0 * u**4 - 10.0 * u**3
     return torch.where(u <= 1.0, val, torch.zeros_like(val))
+
+
+def legendre_cos_all(x: torch.Tensor, l_max: int) -> torch.Tensor:
+    """Legendre polynomials P_l(x) for l = 0..l_max-1 by Bonnet's recursion,
+    stacked on a new axis 0: shape (l_max, *x.shape)."""
+    out = [torch.ones_like(x)]
+    if l_max > 1:
+        out.append(x)
+        for n in range(1, l_max - 1):
+            out.append(((2 * n + 1) * x * out[n] - n * out[n - 1]) / (n + 1))
+    return torch.stack(out)
 
 
 def spherical_bessel_all(z: torch.Tensor, l_max: int) -> torch.Tensor:

@@ -103,8 +103,9 @@ def r2_gather_plain(a, gm, src, l_max: int, n_max: int):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, l_max, n_max, src, pairs):
-    """Validate shapes (every path) and, on CUDA, what the kernels take."""
+def _check(name, l_max, n_max, src, pairs) -> bool:
+    """Validate shapes (every path); True when the operands are on CUDA and
+    fit the kernels, False for the CPU path."""
     if src.dim() != 1:
         raise ValueError(f"{name}: src must be 1-D, got shape {tuple(src.shape)}")
     for label, t, shape in pairs:
@@ -113,47 +114,27 @@ def _check(name, l_max, n_max, src, pairs):
                 f"{name}: {label} has shape {tuple(t.shape)}, expected {shape} "
                 f"(l_max={l_max}, n_max={n_max}, E={src.shape[0]})"
             )
-    dev = pairs[0][1].device
-    if dev.type == "cpu":
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    for label, t, _ in pairs:
-        if t.device != dev:
-            raise ValueError(f"{name}: {label} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32 {label}, got {t.dtype}")
-    if src.device != dev:
-        raise ValueError(f"{name}: src is on {src.device}, expected {dev}")
-    if src.dtype != torch.int32 or not src.is_contiguous():
-        raise TypeError(f"{name}: src must be contiguous int32, got {src.dtype}")
+    if not _cuda.is_cuda(name, [(label, t) for label, t, _ in pairs], [("src", src)]):
+        return False
     if not (1 <= l_max <= KERNEL_MAX_L and 1 <= n_max <= KERNEL_MAX_N):
         raise ValueError(
             f"{name}: the CUDA kernel is built for l_max, n_max in "
             f"1..{KERNEL_MAX_L}, got ({l_max}, {n_max})"
         )
+    return True
 
 
 def _launch(name, in0, in1, src, out, num_edges, num_nodes, l_max, n_max):
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
-    fn = getattr(_cuda.library(), f"m3g_{name}")
-    with torch.cuda.device(out.device):
-        err = fn(
-            in0.data_ptr(), in1.data_ptr(), src.data_ptr(), out.data_ptr(),
-            num_edges, num_nodes, l_max, n_max,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _cuda.launch(LAUNCHES, name, f"m3g_{name}", out.device, in0.data_ptr(), in1.data_ptr(),
+                 src.data_ptr(), out.data_ptr(), num_edges, num_nodes, l_max, n_max)
     return out
 
 
 def _q_forward(sh, gm, src, num_nodes, l_max, n_max):
     m, ln, mn, e = l_max * l_max, l_max * n_max, l_max * l_max * n_max, src.shape[0]
-    _check("q_scatter", l_max, n_max, src, [("sh", sh, (m, e)), ("gm", gm, (ln, e))])
-    if sh.device.type == "cpu":
+    if not _check("q_scatter", l_max, n_max, src, [("sh", sh, (m, e)), ("gm", gm, (ln, e))]):
         return q_scatter_plain(sh, gm, src, num_nodes, l_max, n_max)
     out = torch.empty((mn, num_nodes), dtype=torch.float32, device=sh.device)
     return _launch("q_scatter", sh.contiguous(), gm.contiguous(), src, out,
@@ -165,9 +146,8 @@ def _r_forward(name, a, other, src, l_max, n_max):
     rows_in, rows_out = (m, ln) if name == "r1_gather" else (ln, m)
     if a.dim() != 2:
         raise ValueError(f"{name}: A must be 2-D (MN, N), got {tuple(a.shape)}")
-    _check(name, l_max, n_max, src,
-           [("A", a, (mn, a.shape[1])), ("operand", other, (rows_in, e))])
-    if a.device.type == "cpu":
+    if not _check(name, l_max, n_max, src,
+                  [("A", a, (mn, a.shape[1])), ("operand", other, (rows_in, e))]):
         plain = r1_gather_plain if name == "r1_gather" else r2_gather_plain
         return plain(a, other, src, l_max, n_max)
     out = torch.empty((rows_out, e), dtype=torch.float32, device=a.device)
