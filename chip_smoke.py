@@ -8,25 +8,35 @@ Phases (each raises on failure, so any failure exits non-zero):
 2. build: ``nvcc`` compiles every CUDA source of the port (``csrc/*.cu``),
    one process per source, all at once, into one library;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the bench shapes (the ``src``, ``triplet_e1`` and ``triplet_e2`` of the
-   real bench batch, seeded inputs), forward and VJP: the composed
-   factorized stage (B1-B3), ``fused_triplet_gate_sum`` through
-   ``backward_pair`` (B4, B5) and ``windowed_take_fm`` through
-   ``windowed_scatter_fm`` (B6, B7);
+   the bench shapes (the ``src``, ``triplet_e1``, ``triplet_e2`` and
+   ``edge_graph`` of the real bench batch, seeded inputs), forward and VJP:
+   the composed factorized stage (B1-B3), ``fused_triplet_gate_sum``
+   through ``backward_pair`` (B4, B5), ``windowed_take_fm`` through
+   ``windowed_scatter_fm`` (B6, B7), and ``sorted_segment_sum`` (B8) at the
+   four sorted sums of the path: forward, VJP (the gather), gradient of the
+   gradient (B8 again) and two calls bitwise equal;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
-   Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3;
-   the same weights on the CPU through the plain versions give the
+   Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
+   B8; the same weights on the CPU through the plain versions give the
    reference; B1-B3 must each have launched 2 x num_blocks times in that one
-   evaluation, and B4-B7 never;
+   evaluation, B8 num_blocks + 2 times, and B4-B7 never;
 5. fused model: the same weights in ``threebody_mode="fused"`` evaluate the
-   same batch through B4-B7 (full width, full depth); held against the CPU's
+   same batch through B4-B8 (full width, full depth); held against the CPU's
    fused mode and against the factorized mode on the card; B4 and B5 must
-   each have launched num_blocks times, B6 and B7 twice, B1-B3 never;
-6. times: each mode's eval step (CUDA events, median of 50) with a profiler
-   breakdown, and each kernel beside its plain version, its bound and,
-   where one PyTorch call computes the same function, that call (cold L2,
-   median of 30).
+   each have launched num_blocks times, B6 and B7 twice, B8 num_blocks + 2
+   times, B1-B3 never;
+6. training: a teacher (the same architecture, seed 1) labels the bench
+   batch with its E/F/S; a student (seed 0, default config) in the
+   factorized mode (B1-B3 + B8) and in the fused mode (B4-B8): one step's
+   loss and weight gradients against the same step on the CPU, the exact
+   launch counts of one train step, and five steps whose loss falls and
+   stays finite; the two modes' first losses agree;
+7. times: each mode's eval step (CUDA events, median of 50) with a profiler
+   breakdown, each mode's train step (median of 20) with its breakdown,
+   and each kernel beside its plain version, its bound and, where one
+   PyTorch call computes the same function, that call (cold L2, median of
+   30).
 
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
@@ -59,6 +69,14 @@ VJP_TOL = 1e-4
 # blocks and one backward pass, every sum in another order (kernels, cuBLAS,
 # atomics on the card; sequential on the CPU).
 MODEL_TOL = 1e-4
+# Card vs CPU for one training step: the loss within MODEL_TOL, and each
+# weight gradient within TRAIN_TOL of that tensor's largest magnitude. The
+# gradients go through the double backward of three blocks: f32 sums over
+# 147k edges in other orders (B5/B7 atomics, cuBLAS, the atomics of the
+# index_add sums by dst on the card; sequential on the CPU); the CPU
+# rehearsal at 2,816 edges left
+# 1.8e-6 between f32 and f64 in the worst tensor.
+TRAIN_TOL = 2e-4
 # Fused mode vs factorized mode on the card, as a fraction of the largest
 # magnitude: one function through two f32 algorithms. The factorized stage
 # sums over all pairs of a node's edges and subtracts the j = k diagonal
@@ -166,17 +184,47 @@ def check_kernels(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, floa
     return errs
 
 
-def reset_launches() -> None:
-    from torch_m3gnet_tpu_torch.ops import factorized_stage, fused_triplet, windowed_take
+def kernel_modules():
+    from torch_m3gnet_tpu_torch.ops import (
+        factorized_stage,
+        fused_triplet,
+        sorted_segment,
+        windowed_take,
+    )
 
-    for mod in (factorized_stage, fused_triplet, windowed_take):
+    return factorized_stage, fused_triplet, windowed_take, sorted_segment
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
         mod.reset_launch_counts()
 
 
 def all_launches() -> dict[str, int]:
-    from torch_m3gnet_tpu_torch.ops import factorized_stage, fused_triplet, windowed_take
+    return {name: n for mod in kernel_modules() for name, n in mod.LAUNCHES.items()}
 
-    return {**factorized_stage.LAUNCHES, **fused_triplet.LAUNCHES, **windowed_take.LAUNCHES}
+
+def expected_launches(mode: str, nb: int, train: bool) -> dict[str, int]:
+    """Kernel launches of one eval (or one train step) of ``nb`` blocks.
+
+    An eval runs each three-body kernel forward and in the backward pass of
+    the forces; a train step adds the backward of that backward. B8: one
+    node aggregation per block, forces and strain stress (nb + 2); a train
+    step adds one per block, where the double backward differentiates the
+    node aggregation's VJP (the gather), whose VJP is B8: 2 nb + 2. The
+    gather mode's triplet->edge sum adds one per block to an eval and two
+    to a train step."""
+    counts = {name: 0 for name in all_launches()}
+    if mode == "factorized":
+        for name in ("q_scatter", "r1_gather", "r2_gather"):
+            counts[name] = (6 if train else 2) * nb
+    elif mode == "fused":
+        counts.update(fused_triplet_gate_sum=(3 if train else 1) * nb,
+                      backward_pair=(3 if train else 1) * nb,
+                      windowed_take_fm=4 if train else 2, windowed_scatter_fm=2)
+    counts["sorted_segment_sum"] = (2 * nb + 2 if train else nb + 2) + (
+        nb * (2 if train else 1) if mode == "gather" else 0)
+    return counts
 
 
 def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
@@ -293,9 +341,7 @@ def cpu_reference(cfg, pot, batch):
 
 def check_model(pot, batch, gbatch, cfg):
     """One counted factorized evaluation on the card, compared with the CPU."""
-    nb = cfg.num_blocks
-    expected = {name: 0 for name in all_launches()}
-    expected.update(q_scatter=2 * nb, r1_gather=2 * nb, r2_gather=2 * nb)
+    expected = expected_launches("factorized", cfg.num_blocks, False)
     out, launches = counted_eval(pot, gbatch, expected)
     check_outputs("card vs CPU", out, cpu_reference(cfg, pot, batch), gbatch, MODEL_TOL)
     e = out.energy.detach().cpu().numpy()
@@ -311,32 +357,163 @@ def check_fused_model(pot, out_factorized, batch, gbatch, cfg):
     cfg_f = cfg.replace(threebody_mode="fused")
     pot_f = build_model(cfg_f, device="cuda")
     pot_f.load_state_dict(pot.state_dict())
-    nb = cfg.num_blocks
-    expected = {name: 0 for name in all_launches()}
-    expected.update(fused_triplet_gate_sum=nb, backward_pair=nb,
-                    windowed_take_fm=2, windowed_scatter_fm=2)
+    expected = expected_launches("fused", cfg.num_blocks, False)
     out, launches = counted_eval(pot_f, gbatch, expected)
     check_outputs("fused card vs CPU", out, cpu_reference(cfg_f, pot_f, batch), gbatch, MODEL_TOL)
     for name in ("energy", "forces", "stress", "atomic_energy"):
         check(f"{name} fused vs factorized (card)", getattr(out, name).detach(),
               getattr(out_factorized, name).detach(), MODE_TOL)
-    return pot_f, launches
+    return pot_f, out, launches
 
 
-def time_eval(pot, gbatch, reps: int = 50, warmup: int = 5) -> tuple[float, float]:
-    """Median eval-step time (ms): CUDA events around each call from an idle
-    device, and host wall time to the end of the same call."""
+def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int]]:
+    """(label, F, sorted ids, segments) of the four sorted sums that B8 takes
+    on the path, at the batch's shapes: the node aggregation (per block) and
+    the forces by ``edge_src``, the gather-mode triplet->edge sum by
+    ``triplet_e1``, the strain stress by ``edge_graph``."""
+    src = gbatch.edge_src
+    edge_graph = gbatch.node_graph.index_select(0, src)
+    return [
+        ("node aggregation by src", 64, src, gbatch.num_nodes),
+        ("gather-mode e1 sum", 9, gbatch.triplet_e1, gbatch.num_edges),
+        ("forces by src", 3, src, gbatch.num_nodes),
+        ("strain stress by edge_graph", 9, edge_graph, gbatch.num_graphs),
+    ]
+
+
+def seeded(shape, device, seed: int):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+
+def check_sorted_segment(gbatch) -> float:
+    """B8 against its plain version (``index_add``) at the four shapes:
+    forward, VJP (the gather), gradient of the gradient (whose backward runs
+    B8 again), and two kernel calls bitwise equal."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+
+    errs = []
+    for i, (label, f, seg, nseg) in enumerate(sorted_sum_cases(gbatch)):
+        x = seeded((f, seg.shape[0]), seg.device, 10 + i)
+        w = seeded((f, nseg), seg.device, 20 + i)
+        with torch.no_grad():
+            got = ss.sorted_segment_sum_fm(x, seg, nseg)
+            again = ss.sorted_segment_sum_fm(x, seg, nseg)
+            errs.append(check(f"sorted_segment_sum {label} (F={f}, M={seg.shape[0]}, S={nseg})",
+                              got, ss.sorted_segment_sum_fm_plain(x, seg, nseg), FWD_TOL))
+        if not torch.equal(got, again):
+            raise AssertionError(f"sorted_segment_sum {label}: two calls differ")
+        print(f"  sorted_segment_sum {label}: two calls bitwise equal")
+
+        def vjp(op):
+            xx = x.clone().requires_grad_(True)
+            return torch.autograd.grad((op(xx, seg, nseg) * w).sum(), xx)[0]
+
+        def grad_of_grad(op):
+            # A quadratic loss: a periodic one would turn the rounding of
+            # sums of ~4,600 terms (the stress row) into large phase errors.
+            xx = x.clone().requires_grad_(True)
+            y = op(xx, seg, nseg)
+            (g,) = torch.autograd.grad((y * y).sum(), xx, create_graph=True)
+            return torch.autograd.grad((g * g).sum(), xx)[0]
+
+        check(f"  VJP (gather) {label}", vjp(ss.sorted_segment_sum_fm),
+              vjp(ss.sorted_segment_sum_fm_plain), VJP_TOL)
+        check(f"  grad of grad (B8 in the double backward) {label}",
+              grad_of_grad(ss.sorted_segment_sum_fm),
+              grad_of_grad(ss.sorted_segment_sum_fm_plain), VJP_TOL)
+    return max(errs)
+
+
+def teacher_batch(cfg, batch, gbatch):
+    """The bench batch labelled by a teacher (same architecture, weights from
+    seed 1) with its E/F/S: (host batch with numpy targets, card batch with
+    card targets)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+
+    teacher = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(1))
+    out = teacher(gbatch)
+    targets = {name: getattr(out, name).detach() for name in ("energy", "forces", "stress")}
+    host = batch.replace(**{k: v.cpu().numpy() for k, v in targets.items()})
+    print(f"  teacher energy[:2] (eV) = {targets['energy'][:2].tolist()}")
+    return host, gbatch.replace(**targets)
+
+
+def loss_and_grads(pot, batch, cfg):
+    """The train step's loss and its gradient for every weight, by name."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.train import loss_and_metrics
+
+    loss, _ = loss_and_metrics(pot, batch, cfg)
+    names, params = zip(*pot.named_parameters())
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def check_training(mode, cfg, host_train, card_train):
+    """The student (seed 0) in ``mode``: one step's
+    loss and gradients against the CPU, the launches of one counted train
+    step, and five steps whose loss falls. Returns (trainer, first loss,
+    launches of one step)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    cfg_m = cfg.replace(threebody_mode=mode)
+    pot = build_model(cfg_m, device="cuda", generator=torch.Generator().manual_seed(0))
+    cpu_pot = build_model(cfg_m, device="cpu")
+    cpu_pot.load_state_dict(pot.state_dict())
+    loss, grads = loss_and_grads(pot, card_train, cfg_m)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(cpu_pot, host_train, cfg_m)
+    print(f"  CPU reference loss and gradients: {time.perf_counter() - t0:.1f} s")
+    del cpu_pot
+    check(f"{mode} step-1 loss card vs CPU", loss.cpu(), cpu_loss, MODEL_TOL)
+    worst = max((rel_err(grads[n].cpu(), cpu_grads[n])[1], n) for n in cpu_grads)
+    ok = worst[0] <= TRAIN_TOL
+    print(f"  {mode} weight gradients card vs CPU: worst {worst[1]} rel={worst[0]:.3e} "
+          f"over {len(cpu_grads)} tensors, tol={TRAIN_TOL:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{mode} gradient {worst[1]}: relative error {worst[0]:.3e}")
+
+    trainer = Trainer(pot, cfg_m)
+    expected = expected_launches(mode, cfg.num_blocks, True)
+    reset_launches()
+    losses = [float(trainer.train_step(card_train)["loss"])]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    print(f"  launches in one train step: {launches}")
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    losses += [float(trainer.train_step(card_train)["loss"]) for _ in range(4)]
+    print(f"  {mode} losses over 5 steps: {losses}")
+    finite = all(bool(p.isfinite().all()) for p in pot.parameters())
+    if not (finite and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{mode} training: finite weights {finite}, losses {losses}")
+    return trainer, float(loss), launches
+
+
+def time_step(step, reps: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """Median step time (ms) of ``step()``: CUDA events around each call from
+    an idle device, and host wall time to the end of the same call."""
     import torch
 
     for _ in range(warmup):
-        pot(gbatch)
+        step()
     torch.cuda.synchronize()
     dev_ms, wall_ms = [], []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        pot(gbatch)
+        step()
         end.record()
         end.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3)
@@ -344,9 +521,9 @@ def time_eval(pot, gbatch, reps: int = 50, warmup: int = 5) -> tuple[float, floa
     return statistics.median(dev_ms), statistics.median(wall_ms)
 
 
-def profile_eval(pot, gbatch, step_ms: float, steps: int = 5) -> dict:
-    """Device time per eval step by kernel (torch.profiler over ``steps``
-    steps) and the device's busy share of the unprofiled step time."""
+def profile_step(step, step_ms: float, steps: int = 5) -> dict:
+    """Device time per step by kernel (torch.profiler over ``steps`` calls of
+    ``step()``) and the device's busy share of the unprofiled step time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -354,7 +531,7 @@ def profile_eval(pot, gbatch, step_ms: float, steps: int = 5) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            pot(gbatch)
+            step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
@@ -402,6 +579,7 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     from torch_m3gnet_tpu_torch.ops import windowed_take as wt
 
     src, num_nodes, l_max, n_max = gbatch.edge_src, gbatch.num_nodes, cfg.l_max, cfg.n_max
+    ss_rows = time_sorted_segment(gbatch, card_name)
     e, t = gbatch.num_edges, gbatch.num_triplets
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
     m, ln, mn = l_max * l_max, l_max * n_max, l_max * l_max * n_max
@@ -471,7 +649,8 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     def mean_ms(fns):
         return None if fns is None else statistics.mean(time_cold(fn, flush) for fn in fns)
 
-    rows = []
+    rows = [dict(ss_rows[0], launches=launches["sorted_segment_sum"],
+                 max_abs_err=errs["sorted_segment_sum"])]
     with torch.no_grad():
         for name, (source, kernel, plain, library, nbytes, flops, replaces) in specs.items():
             ms, plain_ms, library_ms = mean_ms(kernel), mean_ms(plain), mean_ms(library)
@@ -497,19 +676,67 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     return rows
 
 
-def eval_line(label, pot, gbatch, name, smi, real) -> float:
-    """Print the eval-step line and the profile line of one mode."""
+def time_sorted_segment(gbatch, card_name) -> list[dict]:
+    """B8 at each of its four shapes on the path: kernel, plain version and
+    ``index_add_`` (cold L2, median of 30) beside the bytes bound. Prints
+    the rows as one line; the first (the node aggregation, the largest and
+    the one each block runs) goes into the ``kernels`` line."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=gbatch.edge_src.device)
+    bw = bandwidth(card_name)
+    rows = []
+    with torch.no_grad():
+        for i, (label, f, seg, nseg) in enumerate(sorted_sum_cases(gbatch)):
+            x = seeded((f, seg.shape[0]), seg.device, 10 + i)
+            m = seg.shape[0]
+            nbytes = 4 * f * m + 4 * m + 4 * f * nseg
+            bytes_ms, ops_ms = nbytes / bw * 1e3, f * m / F32_FLOPS * 1e3
+            ms = time_cold(lambda: ss.sorted_segment_sum_fm(x, seg, nseg), flush)
+            plain_ms = time_cold(lambda: ss.sorted_segment_sum_fm_plain(x, seg, nseg), flush)
+            library_ms = time_cold(
+                lambda: torch.zeros((f, nseg), device=x.device).index_add_(1, seg, x), flush)
+            rows.append({
+                "name": "sorted_segment_sum",
+                "route": "cuda",
+                "source": "torch_m3gnet_tpu_torch/csrc/sorted_segment.cu",
+                "replaces": "torch_m3gnet_tpu/ops/pallas_segment.py:252",
+                "also_replaces": "torch_m3gnet_tpu/ops/pallas_segment.py:129",
+                "shape": {"call": label, "F": f, "M": m, "S": nseg},
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": library_ms,
+                "bytes": nbytes,
+            })
+            print(f"  sorted_segment_sum {label}: {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} "
+                  f"us, index_add_ {library_ms * 1e3:.1f} us, bound "
+                  f"{max(bytes_ms, ops_ms) * 1e3:.2f} us for {nbytes / 1e6:.2f} MB)")
+    print(json.dumps({"sorted_segment_sum_shapes": rows}))
+    return rows
+
+
+def step_line(label, step, gbatch, name, smi, real, reps=50, warmup=5, eval_ms=None,
+              **extra) -> float:
+    """Print the step line and the profile line of one step function; with
+    ``eval_ms`` (a train step's), also its ratio to that eval step."""
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    step_ms, wall_ms = time_eval(pot, gbatch)
+    step_ms, wall_ms = time_step(step, reps, warmup)
+    if eval_ms is not None:
+        extra.update(eval_ms=eval_ms, train_eval_ratio=step_ms / eval_ms)
     print(json.dumps({label: {
         "card": name, "nvidia_smi": smi, "step_ms": step_ms, "wall_ms": wall_ms,
         "items_per_s": sum(real) / (step_ms * 1e-3), "edges": real[0], "triplets": real[1],
-        "graphs": gbatch.num_graphs, "reps": 50,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "graphs": gbatch.num_graphs, "reps": reps,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **extra,
     }}))
-    print(json.dumps({label.replace("eval", "profile"): profile_eval(pot, gbatch, step_ms)}))
+    profile = profile_step(step, step_ms)
+    print(json.dumps({label.replace("eval", "profile").replace("train", "profile_train"): profile}))
     return step_ms
 
 
@@ -542,7 +769,7 @@ def main() -> int:
     log = lib_path.with_suffix(".so.log").read_text().splitlines()
     for i, line in enumerate(log):  # ptxas report of the kernels the default model runs
         if "Compiling entry function" in line and any(
-            k in line for k in ("Li3ELi3E", "Li9E", "windowed", "backward_pair")
+            k in line for k in ("Li3ELi3E", "Li9E", "windowed", "backward_pair", "segment")
         ):
             print("\n".join("  " + x.strip() for x in log[i : i + 4]))
 
@@ -559,6 +786,7 @@ def main() -> int:
     gbatch = to_torch(batch, "cuda", torch.float32)
     errs = check_kernels(gbatch.edge_src, gbatch.num_nodes, cfg.l_max, cfg.n_max)
     errs.update(check_triplet_kernels(gbatch, cfg.l_max * cfg.n_max))
+    errs["sorted_segment_sum"] = check_sorted_segment(gbatch)
 
     print("== 4. model, factorized mode (default config, seeded weights, bench batch)")
     pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -569,15 +797,33 @@ def main() -> int:
     out, launches = check_model(pot, batch, gbatch, cfg)
 
     print("== 5. model, fused mode (same weights, same batch)")
-    pot_f, launches_f = check_fused_model(pot, out, batch, gbatch, cfg)
-    del out
+    pot_f, out_f, launches_f = check_fused_model(pot, out, batch, gbatch, cfg)
+    del out, out_f
 
-    print("== 6. times")
-    eval_line("eval", pot, gbatch, name, smi, real)
-    eval_line("eval_fused", pot_f, gbatch, name, smi, real)
+    print("== 6. training (teacher labels, seed-0 student)")
+    host_train, card_train = teacher_batch(cfg, batch, gbatch)
+    trainers, first_loss, train_launches = {}, {}, {}
+    for mode in ("factorized", "fused"):
+        trainers[mode], first_loss[mode], train_launches[mode] = check_training(
+            mode, cfg, host_train, card_train)
+    check("step-1 loss fused vs factorized (card)", torch.tensor(first_loss["fused"]),
+          torch.tensor(first_loss["factorized"]), MODE_TOL)
+
+    print("== 7. times")
+    eval_ms = {}
+    for label, p in (("eval", pot), ("eval_fused", pot_f)):
+        eval_ms[label] = step_line(label, lambda: p(gbatch), gbatch, name, smi, real)
+    for label, mode, eval_label in (("train", "factorized", "eval"),
+                                    ("train_fused", "fused", "eval_fused")):
+        trainer = trainers[mode]
+        step_line(label, lambda: trainer.train_step(card_train), gbatch, name, smi, real,
+                  reps=20, warmup=3, mode=mode, eval_ms=eval_ms[eval_label])
     # each kernel's launches from the evaluation of its own mode
     counts = {k: launches[k] or launches_f[k] for k in launches}
     rows = time_kernels(gbatch, cfg, name, counts, errs)
+    for row in rows:
+        row["launches_train"] = (train_launches["factorized"][row["name"]]
+                                 or train_launches["fused"][row["name"]])
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -83,3 +83,21 @@ def test_to_torch_checks_triplet_indices(al_fcc, field, shift, match):
     to_torch(batch, "cpu")  # the packed batch itself passes
     with pytest.raises(ValueError, match=match):
         to_torch(batch.replace(**{field: bad}), "cpu")
+
+
+@pytest.mark.parametrize(
+    "bad, match",
+    [("reverse", "node_graph must be sorted"), ("past-end", "node_graph holds a graph index"),
+     ("negative", "node_graph holds a graph index")],
+    ids=["unsorted", "range", "negative"],
+)
+def test_to_torch_checks_node_graph(al_fcc, na_bcc, bad, match):
+    """The strain stress sums by edge_graph = node_graph[edge_src], sorted
+    only if node_graph is: a host batch that breaks that is refused."""
+    batch = pack_structures([_port_structure(al_fcc), _port_structure(na_bcc)], 5.0, 4.0,
+                            max_graphs=3)
+    ng = batch.node_graph
+    to_torch(batch, "cpu")  # the packed batch itself passes
+    node_graph = {"reverse": ng[::-1].copy(), "past-end": ng + 3, "negative": ng - 1}[bad]
+    with pytest.raises(ValueError, match=match):
+        to_torch(batch.replace(node_graph=node_graph), "cpu")

@@ -155,9 +155,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "torch_m3gnet_tpu"))
 print(len(names), bad)
 assert not bad, bad
-for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "models.m3gnet"):
+for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "models.m3gnet",
+             "ops.sorted_segment", "data.dataset", "train.loop", "train.metrics",
+             "train.elemental"):
     assert pkg.__name__ + "." + name in names, name
-assert len(names) >= 14, names
+assert len(names) >= 20, names
+logging = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("tensorboard", "tensorboardX", "wandb", "mlflow"))
+assert not logging, logging
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=Path(__file__).resolve().parent.parent)

@@ -1,0 +1,74 @@
+"""The kernel launch counts that chip_smoke.py asserts on the card, held to
+the calls the port makes on the CPU.
+
+On the CPU each kernel wrapper calls its plain version exactly where, on a
+CUDA tensor, it would launch its kernel; counting those calls over one eval
+and one train step gives the card's launch counts, in every three-body mode
+and at two depths (the counts that grow with the blocks and those that do
+not).
+"""
+
+import collections
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from torch_m3gnet_tpu_torch.config import M3GNetConfig
+from torch_m3gnet_tpu_torch.data import Structure, pack_structures
+from torch_m3gnet_tpu_torch.models import build_model
+from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
+from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+from torch_m3gnet_tpu_torch.ops import windowed_take as wt
+from torch_m3gnet_tpu_torch.train import Trainer
+
+# kernel name -> (module, the function its wrapper calls on a CPU tensor)
+PLAIN = {
+    "q_scatter": (fs, "q_scatter_plain"),
+    "r1_gather": (fs, "r1_gather_plain"),
+    "r2_gather": (fs, "r2_gather_plain"),
+    "fused_triplet_gate_sum": (ft, "fused_triplet_gate_sum_plain"),
+    "backward_pair": (ft, "backward_pair_plain"),
+    "windowed_take_fm": (wt, "take_fm_plain"),
+    "windowed_scatter_fm": (wt, "scatter_fm_plain"),
+    "sorted_segment_sum": (ss, "sorted_segment_sum_fm_plain"),
+}
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    counts = collections.Counter()
+    for name, (mod, attr) in PLAIN.items():
+        fn = getattr(mod, attr)
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            counts[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(mod, attr, wrapper)
+    return counts
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("mode", ["factorized", "fused", "gather"])
+def test_launch_counts_match_chip_smoke(counted, mode, nb):
+    rng = np.random.default_rng(0)
+    base = Structure.from_frac_coords(
+        np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], [29] * 4)
+    structs = [Structure(base.lattice, base.cart_coords + 0.05 * rng.standard_normal((4, 3)),
+                         base.atomic_numbers) for _ in range(2)]
+    batch = pack_structures(structs, 5.0, 4.0, pad_multiple=64)
+    batch = batch.replace(energy=np.array([-12.0, -12.1], np.float32),
+                          forces=np.zeros((batch.num_nodes, 3), np.float32),
+                          stress=np.zeros((2, 6), np.float32))
+    cfg = M3GNetConfig(threebody_mode=mode, embedding_dim=8, num_blocks=nb)
+    pot = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    names = list(PLAIN)
+    counted.clear()
+    pot(batch)
+    assert {n: counted[n] for n in names} == chip_smoke.expected_launches(mode, nb, False)
+    counted.clear()
+    Trainer(pot, cfg).train_step(batch)
+    assert {n: counted[n] for n in names} == chip_smoke.expected_launches(mode, nb, True)

@@ -2,7 +2,8 @@
 
 The JAX package stays the reference; this package imports nothing of it.
 Entry point: ``models.build_model(config)`` -> potential; ``potential(batch)``
--> energy, forces, stress and atomic energies. The three-body stage runs on
+-> energy, forces, stress and atomic energies; ``train.Trainer`` trains it on
+E/F/S targets. The three-body stage and the sorted segment sums run on
 hand-written Hopper kernels (``csrc/``), built with ``nvcc`` at first use.
 """
 

@@ -5,7 +5,9 @@ into either package. Fields that exist only for the TPU build are accepted
 and ignored by this port: ``fused_factorized``, ``pallas_segment``,
 ``fuse_gated_second``, ``matmul_precision`` and ``bucket_classes``; of
 ``layout`` only the check that ``"fm"`` goes with the factorized mode is
-kept. The port always computes feature-major with full-f32 matmuls.
+kept; of ``pallas_segment`` only the check of its value. The port always
+computes feature-major with full-f32 matmuls, and its sorted segment sums
+always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ class M3GNetConfig:
     # Ignored by the port (size-class bucketing of the data pipeline).
     bucket_classes: int = 1
     num_devices: int = 1
-    # Ignored by the port (TPU Pallas segment-sum knob).
+    # Ignored by the port beyond a value check (TPU Pallas segment-sum knob):
+    # the sorted segment sums always run the sorted-segment kernel.
     pallas_segment: str = "auto"
     # Legacy three-body knob, read when threebody_mode is "auto": "on" selects
     # the fused mode, "off" the gather mode.

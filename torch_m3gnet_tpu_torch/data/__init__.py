@@ -1,3 +1,4 @@
+from torch_m3gnet_tpu_torch.data.dataset import BucketSpec, batch_iterator, split_dataset
 from torch_m3gnet_tpu_torch.data.graph import (
     GraphBatch,
     batch_graphs,
@@ -12,14 +13,17 @@ from torch_m3gnet_tpu_torch.data.structure import Structure
 from torch_m3gnet_tpu_torch.data.triplets import compute_threebody
 
 __all__ = [
+    "BucketSpec",
     "GraphBatch",
     "Structure",
     "batch_graphs",
+    "batch_iterator",
     "compute_threebody",
     "graph_from_structure",
     "neighbor_list_pbc",
     "pack_structures",
     "pad_batch",
     "round_up",
+    "split_dataset",
     "to_torch",
 ]

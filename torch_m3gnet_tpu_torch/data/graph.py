@@ -299,7 +299,10 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
 
     A host batch is checked once here for what the kernels rely on:
     ``edge_src`` sorted ascending, every node index in [0, N);
-    ``triplet_e1`` sorted ascending, every edge index in [0, E).
+    ``triplet_e1`` sorted ascending, every edge index in [0, E);
+    ``node_graph`` sorted ascending, every graph index in [0, B) (the strain
+    stress sums by ``edge_graph = node_graph[edge_src]``, sorted only if
+    ``node_graph`` is).
     """
     import torch
 
@@ -322,6 +325,11 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
         for name, idx in (("triplet_e1", e1), ("triplet_e2", e2)):
             if idx.size and (idx.min() < 0 or idx.max() >= src.size):
                 raise ValueError(f"{name} holds an edge index outside [0, {src.size})")
+        node_graph, nb = np.asarray(batch.node_graph), int(np.asarray(batch.lattice).shape[0])
+        if np.any(np.diff(node_graph) < 0):
+            raise ValueError("node_graph must be sorted ascending")
+        if node_graph.size and (node_graph.min() < 0 or node_graph.max() >= nb):
+            raise ValueError(f"node_graph holds a graph index outside [0, {nb})")
 
     def conv(name, a):
         if a is None or name == "num_graphs_real":

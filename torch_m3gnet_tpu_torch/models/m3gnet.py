@@ -13,13 +13,18 @@ JAX package's three modes, which compute the same function:
   index ops (``index_select``/``index_add``), as JAX runs it through XLA's.
 
 The kernel ops run their hand-written CUDA kernels on a CUDA device and
-their plain versions on the CPU.
+their plain versions on the CPU. The sums over sorted ids run through
+``ops.sorted_segment``: the node aggregation by ``edge_src``, the gather-mode
+triplet->edge sum by ``triplet_e1``, the forces by ``edge_src`` and the
+strain stress by ``edge_graph``.
 
 - :func:`edge_vectors_fm` builds the (3, E) pair vectors from positions,
   cell shifts and lattices;
 - :class:`M3GNet` maps a batch and those vectors to per-graph energies;
 - :class:`M3GNetPotential` takes ONE backward pass with respect to the edge
-  vectors, from which forces and stress are assembled;
+  vectors, from which forces and stress are assembled (``create_graph=True``
+  keeps its graph, so a loss on forces and stress differentiates to the
+  weights);
 - :func:`build_model` assembles a potential from a config on a device.
 """
 
@@ -46,9 +51,11 @@ from torch_m3gnet_tpu_torch.ops.basis import (
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
 from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
 
 THREEBODY_MODES = ("factorized", "fused", "gather")
+PALLAS_SEGMENT = ("auto", "on", "off")
 
 
 @dataclass(frozen=True)
@@ -177,7 +184,7 @@ class M3GNet(nn.Module):
             node_msg = getattr(self, f"conv_node_{b}")(concat) * getattr(
                 self, f"conv_node_w_{b}"
             )(ew_fm)
-            v_fm = v_fm + segment_sum_fm(node_msg * edge_mask, src, num_nodes)
+            v_fm = v_fm + sorted_segment_sum_fm(node_msg * edge_mask, src, num_nodes)
 
         # --- readout
         atomic = self.readout(v_fm)[0]  # (N,)
@@ -249,7 +256,9 @@ class M3GNet(nn.Module):
         node_k = graph.triplet_node_k
         if node_k is None:
             node_k = dst.index_select(0, e2)
-        return lambda gate_fm: segment_sum_fm(basis_fm * take_fm(gate_fm, node_k), e1, num_edges)
+        return lambda gate_fm: sorted_segment_sum_fm(
+            basis_fm * take_fm(gate_fm, node_k), e1, num_edges
+        )
 
 
 def _voigt(t: torch.Tensor) -> torch.Tensor:
@@ -270,6 +279,9 @@ class M3GNetPotential(nn.Module):
 
     Call it with a host :class:`GraphBatch` (numpy) or one already moved by
     :func:`to_torch`; float fields are cast to the parameters' dtype.
+    ``create_graph=True`` (training) keeps the graph of the backward pass,
+    so forces and stress differentiate to the weights; evaluation leaves it
+    False.
     """
 
     def __init__(self, model: M3GNet, stress_mode: str = "strain"):
@@ -279,7 +291,7 @@ class M3GNetPotential(nn.Module):
         self.model = model
         self.stress_mode = stress_mode
 
-    def forward(self, batch) -> PotentialOutput:
+    def forward(self, batch, create_graph: bool = False) -> PotentialOutput:
         param = self.model.edge_init.kernel
         graph = to_torch(batch, param.device, param.dtype)
         positions, lattice = graph.positions, graph.lattice
@@ -289,12 +301,12 @@ class M3GNetPotential(nn.Module):
             if not r_fm.requires_grad:
                 r_fm.requires_grad_(True)
             energy, atomic = self.model(graph, r_fm)
-            (g_fm,) = torch.autograd.grad(energy.sum(), r_fm)  # (3, E)
+            (g_fm,) = torch.autograd.grad(energy.sum(), r_fm, create_graph=create_graph)  # (3, E)
 
         src, dst = graph.edge_src, graph.edge_dst
         nmask = graph.node_mask.to(g_fm.dtype)[None, :]
         forces = ((
-            segment_sum_fm(g_fm, src, graph.num_nodes)
+            sorted_segment_sum_fm(g_fm, src, graph.num_nodes)
             - segment_sum_fm(g_fm, dst, graph.num_nodes)
         ) * nmask).t()  # (N, 3)
 
@@ -304,7 +316,7 @@ class M3GNetPotential(nn.Module):
         if self.stress_mode == "strain":
             edge_graph = graph.node_graph.index_select(0, src)
             outer_fm = (r_fm[:, None, :] * g_fm[None, :, :]).reshape(9, -1)
-            per_graph = segment_sum_fm(outer_fm, edge_graph, nb).t().reshape(-1, 3, 3)
+            per_graph = sorted_segment_sum_fm(outer_fm, edge_graph, nb).t().reshape(-1, 3, 3)
             per_graph = 0.5 * (per_graph + per_graph.transpose(1, 2))
         else:
             outer = positions[:, :, None] * forces[:, None, :]  # (N, 3, 3)
@@ -352,6 +364,11 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
     and on the CPU alike (JAX picks gather on its CPU; the port keeps one
     default so that the card and its CPU reference run the same path).
     ``layout="fm"`` with a per-triplet mode raises, as in JAX.
+
+    ``pallas_segment`` is checked and otherwise ignored: the sorted sums
+    run the sorted-segment kernel on the card under every value (the JAX
+    package's ``"on"``), since it is deterministic, where ``index_add`` is
+    not.
     """
     mode = config.threebody_mode
     if mode == "auto":
@@ -363,6 +380,8 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         raise ValueError(f"unknown threebody_mode: {mode}")
     if config.layout == "fm" and mode != "factorized":
         raise ValueError("layout='fm' requires threebody_mode='factorized'")
+    if config.pallas_segment not in PALLAS_SEGMENT:
+        raise ValueError(f"unknown pallas_segment: {config.pallas_segment!r}")
     if config.compute_dtype not in ("float32", None):
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r} comes with a later slice "

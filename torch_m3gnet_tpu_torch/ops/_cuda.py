@@ -39,6 +39,8 @@ _ENTRIES = {
     "m3g_fused_triplet_gate_sum": [_P] * 5 + [_I] * 3 + [_P],
     # (basis, gate, g, e1, e2, d_basis, d_gate, rows, num_edges, num_trip, stream)
     "m3g_backward_pair": [_P] * 7 + [_I] * 3 + [_P],
+    # (data, seg, offsets scratch, out, rows, num_rows_m, num_segments, stream)
+    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

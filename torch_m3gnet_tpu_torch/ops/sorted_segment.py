@@ -1,0 +1,103 @@
+"""The feature-major segment sum over sorted ids: CUDA kernel, plain version,
+autograd.
+
+Counterpart of ``torch_m3gnet_tpu.ops.pallas_segment`` (``sorted_segment_sum``
+and ``sorted_segment_sum_any``, one function):
+
+    sorted_segment_sum_fm(data (F, M), seg (M,), S) -> out[:, s] = sum_{seg[m]=s} data[:, m]
+
+``seg`` is int32, sorted ascending, in [0, S). The model sends its sorted
+sums here: the node aggregation and the forces by ``edge_src``, the
+gather-mode triplet->edge sum by ``triplet_e1``, and the strain stress by
+``edge_graph``.
+
+The op has a hand-written CUDA kernel (``csrc/sorted_segment.cu``: no
+atomics, a fixed summation order, so two calls give the same bits), a plain
+torch version (``*_plain``, ``index_add``) and an ``autograd.Function``. The
+Function runs the kernel on a CUDA tensor and the plain version on a CPU
+tensor; on CUDA there is no fallback. Its VJP is the gather ``g[:, seg]``
+(``index_select``, as JAX's VJP is ``jnp.take`` outside any kernel), whose
+VJP is the segment sum again, so ``create_graph=True`` works to any order
+and the training step's double backward runs the kernel too.
+
+``LAUNCHES`` counts the calls that launch the kernel (CUDA path only).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from torch_m3gnet_tpu_torch.ops import _cuda
+
+LAUNCHES = {"sorted_segment_sum": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sorted_segment_sum_fm_plain(data_fm: torch.Tensor, seg: torch.Tensor,
+                                num_segments: int) -> torch.Tensor:
+    """(F, M), (M,) -> (F, num_segments)."""
+    return data_fm.new_zeros((data_fm.shape[0], num_segments)).index_add_(1, seg, data_fm)
+
+
+def _forward(data_fm, seg, num_segments):
+    name = "sorted_segment_sum"
+    if seg.dim() != 1:
+        raise ValueError(f"{name}: seg must be 1-D, got shape {tuple(seg.shape)}")
+    if data_fm.dim() != 2 or data_fm.shape[1] != seg.shape[0]:
+        raise ValueError(
+            f"{name}: data has shape {tuple(data_fm.shape)}, expected (F, {seg.shape[0]})"
+        )
+    if not _cuda.is_cuda(name, [("data", data_fm)], [("seg", seg)]):
+        return sorted_segment_sum_fm_plain(data_fm, seg, num_segments)
+    f, m = data_fm.shape
+    dev = data_fm.device
+    out = torch.empty((f, num_segments), dtype=torch.float32, device=dev)
+    if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
+        return out
+    data_fm = data_fm.contiguous()
+    offsets = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
+    _cuda.launch(LAUNCHES, name, "m3g_sorted_segment_sum", dev, data_fm.data_ptr(),
+                 seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), f, m, num_segments)
+    return out
+
+
+class SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data_fm, seg, num_segments):
+        ctx.save_for_backward(seg)
+        return _forward(data_fm, seg, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return sorted_take_fm(g, seg), None, None
+
+
+class SortedTake(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_fm, seg):
+        ctx.save_for_backward(seg)
+        ctx.num_segments = x_fm.shape[1]
+        return x_fm.index_select(1, seg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        return sorted_segment_sum_fm(g, seg, ctx.num_segments), None
+
+
+def sorted_segment_sum_fm(data_fm: torch.Tensor, seg: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """out[:, s] = sum_{m: seg[m]=s} data_fm[:, m]: (F, M), sorted int32 (M,)
+    in [0, num_segments) -> (F, num_segments)."""
+    return SortedSegmentSum.apply(data_fm, seg, num_segments)
+
+
+def sorted_take_fm(x_fm: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """out[:, m] = x_fm[:, seg[m]], the VJP of :func:`sorted_segment_sum_fm`;
+    its own VJP is that segment sum."""
+    return SortedTake.apply(x_fm, seg)
