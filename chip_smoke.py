@@ -14,7 +14,12 @@ Phases (each raises on failure, so any failure exits non-zero):
    through ``backward_pair`` (B4, B5), ``windowed_take_fm`` through
    ``windowed_scatter_fm`` (B6, B7), and ``sorted_segment_sum`` (B8) at the
    four sorted sums of the path: forward, VJP (the gather), gradient of the
-   gradient (B8 again) and two calls bitwise equal;
+   gradient (B8 again) and two calls bitwise equal; then B1 and B4 on the
+   sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
+   20,480-entry run, runs across chunk boundaries, a ragged segment count,
+   long stretches of empty segments) at (l_max, n_max) = (1, 1), (3, 3),
+   (4, 4) and LN = 1, 9, 16: against the plain versions, two calls
+   bitwise equal;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -36,7 +41,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    breakdown, each mode's train step (median of 20) with its breakdown,
    and each kernel beside its plain version, its bound and, where one
    PyTorch call computes the same function, that call (cold L2, median of
-   30).
+   30), with its time split by CUDA kernel (``parts_us``).
 
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
@@ -150,6 +155,104 @@ def stage_inputs(num_nodes: int, num_edges: int, l_max: int, n_max: int, device)
         torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
         for shape in ((m, num_edges), (ln, num_edges), (mn, num_nodes))
     )
+
+
+# Sorted indices that stress the sorted-owner sums (B1 by src, B4 by e1)
+# beyond the bench batch: the CPU tests hold the plain versions to JAX on
+# them and phase 3 holds the kernels to the plain versions. B1 blocks own 4
+# nodes and stage 512 edges per chunk; B4 blocks own 256 edges and stage
+# 8,192 / (LN + 1) triplets per chunk.
+SORTED_CASES = ("one-segment", "long-run", "chunk-crossing", "ragged-count", "empty-stretches")
+
+
+def sorted_index_case(case: str) -> tuple[np.ndarray, int]:
+    """(sorted int32 ids, number of segments S) of one case:
+
+    - one-segment: all 3,001 entries on segment 13 of 21;
+    - long-run: segment 150 of 300 owns a run of 20,480 (longer than any
+      chunk), the others 0-9 each;
+    - chunk-crossing: runs of 0-160 over 300 segments, so chunk boundaries
+      fall inside runs and a block's span outgrows its chunk;
+    - ragged-count: 517 segments (not a multiple of 4 or 256), runs 0-12;
+    - empty-stretches: 1,203 segments, entries only on 0-2, 600-605 and a
+      700-entry tail on the last one, so whole blocks own nothing.
+
+    The entry count is a multiple of 4 in two cases and not in three, so
+    that the kernels' 16-byte and scalar staging both run."""
+    rng = np.random.default_rng(30 + SORTED_CASES.index(case))
+    if case == "one-segment":
+        return np.full(3001, 13, np.int32), 21
+    if case == "long-run":
+        runs = rng.integers(0, 10, 300)
+        runs[150] = 20_480
+        runs[-1] += (2 - runs.sum()) % 4  # entry count = 2 mod 4
+    elif case == "chunk-crossing":
+        runs = rng.integers(0, 161, 300)
+        runs[-1] += -runs.sum() % 4  # a multiple of 4
+    elif case == "ragged-count":
+        runs = rng.integers(0, 13, 517)
+        runs[-1] += (1 - runs.sum()) % 4
+    else:
+        runs = np.zeros(1203, np.int64)
+        runs[[0, 1, 2, 600, 601, 602, 603, 604, 605]] = rng.integers(1, 41, 9)
+        runs[-1] = 700 + (-runs.sum() - 700) % 4
+    return np.repeat(np.arange(runs.size), runs).astype(np.int32), int(runs.size)
+
+
+def dyadic(rng, shape) -> np.ndarray:
+    """f32 values k / 4 with |k| <= 8: every product of two is a multiple of
+    1/16 below 4 in magnitude, so each sum of the cases (at most ~2^15
+    terms) is exact in f32 in any order, and a kernel that sums the right
+    terms equals its plain version exactly."""
+    return (rng.integers(-8, 9, shape) / 4).astype(np.float32)
+
+
+def q_case_inputs(case: str, l_max: int, n_max: int):
+    """(sh (M, E), gm (LN, E), sorted src (E,), N) for B1, numpy."""
+    src, n = sorted_index_case(case)
+    rng = np.random.default_rng(40 + SORTED_CASES.index(case))
+    e = src.shape[0]
+    return dyadic(rng, (l_max * l_max, e)), dyadic(rng, (l_max * n_max, e)), src, n
+
+
+def triplet_case_inputs(case: str, ln: int):
+    """(basis (LN, T), gate (LN, E), sorted e1 (T,), e2 (T,), E) for B4, numpy."""
+    e1, e = sorted_index_case(case)
+    rng = np.random.default_rng(50 + SORTED_CASES.index(case))
+    t = e1.shape[0]
+    e2 = rng.integers(0, e, t).astype(np.int32)
+    return dyadic(rng, (ln, t)), dyadic(rng, (ln, e)), e1, e2, e
+
+
+def check_sorted_index_cases() -> None:
+    """B1 and B4 against their plain versions on every case of
+    ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) and LN = 1,
+    9, 16, and two kernel calls bitwise equal."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
+    from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+
+    def run(label, kernel, plain):
+        with torch.no_grad():
+            got, again = kernel(), kernel()
+            check(label, got, plain(), FWD_TOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two calls differ")
+
+    for case in SORTED_CASES:
+        for l_max, n_max in ((1, 1), (3, 3), (4, 4)):
+            sh, gm, src, n = q_case_inputs(case, l_max, n_max)
+            args = (*(torch.as_tensor(x, device="cuda") for x in (sh, gm, src)), n, l_max, n_max)
+            run(f"q_scatter {case} (l_max, n_max) = ({l_max}, {n_max}), E = {src.shape[0]}, "
+                f"N = {n}", lambda: fs.q_scatter(*args), lambda: fs.q_scatter_plain(*args))
+        for ln in (1, 9, 16):
+            basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
+            args = tuple(torch.as_tensor(x, device="cuda") for x in (basis, gate, e1, e2)) + (e,)
+            run(f"fused_triplet_gate_sum {case} LN = {ln}, T = {e1.shape[0]}, E = {e}",
+                lambda: ft.fused_triplet_gate_sum(*args),
+                lambda: ft.fused_triplet_gate_sum_plain(*args))
+    print("  every case: two calls bitwise equal")
 
 
 def check_kernels(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, float]:
@@ -569,6 +672,32 @@ def time_cold(fn, flush, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def kernel_parts(fn, flush, calls: int = 10) -> dict[str, float]:
+    """Device time (us per call of ``fn``) of each CUDA kernel that ``fn``
+    launches, from torch.profiler over ``calls`` cold-L2 calls: where one
+    wrapper call launches two kernels (the offsets pass and the sum), how
+    the time splits."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            fn()
+        torch.cuda.synchronize()
+    return {
+        e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]:
+            e.self_device_time_total / calls
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+        and "elementwise" not in e.key and "fill" not in e.key.lower()
+    }
+
+
 def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     """One row per kernel: its time, its plain version's, its bound and,
     where one PyTorch call computes the same function, that call's."""
@@ -669,10 +798,12 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms,
                 "bytes": nbytes,
+                "parts_us": kernel_parts(kernel[0], flush),
             })
             lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
             print(f"  {name}: {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us{lib}, "
-                  f"bound {max(bytes_ms, ops_ms) * 1e3:.2f} us for {nbytes / 1e6:.2f} MB)")
+                  f"bound {max(bytes_ms, ops_ms) * 1e3:.2f} us for {nbytes / 1e6:.2f} MB; "
+                  f"kernels {rows[-1]['parts_us']})")
     return rows
 
 
@@ -711,6 +842,7 @@ def time_sorted_segment(gbatch, card_name) -> list[dict]:
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms,
                 "bytes": nbytes,
+                "parts_us": kernel_parts(lambda: ss.sorted_segment_sum_fm(x, seg, nseg), flush),
             })
             print(f"  sorted_segment_sum {label}: {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} "
                   f"us, index_add_ {library_ms * 1e3:.1f} us, bound "
@@ -787,6 +919,7 @@ def main() -> int:
     errs = check_kernels(gbatch.edge_src, gbatch.num_nodes, cfg.l_max, cfg.n_max)
     errs.update(check_triplet_kernels(gbatch, cfg.l_max * cfg.n_max))
     errs["sorted_segment_sum"] = check_sorted_segment(gbatch)
+    check_sorted_index_cases()
 
     print("== 4. model, factorized mode (default config, seeded weights, bench batch)")
     pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))

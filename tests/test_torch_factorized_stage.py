@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import q_scatter as jq
+from torch_m3gnet_tpu.ops.pallas_factorized_stage import q_scatter_xla
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r1_gather as jr1
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r2_gather as jr2
 from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
@@ -97,6 +99,28 @@ def test_stage_vjp_matches_jax_grad(interpret):
     assert float(val.detach()) == pytest.approx(want, abs=5e-4)
     for got, w in zip(got_g, want_g):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("sizes", [(1, 1), (3, 3), (4, 4)])
+@pytest.mark.parametrize("case", chip_smoke.SORTED_CASES)
+def test_q_scatter_sorted_index_cases(case, sizes):
+    """Q (Function and plain version) against q_scatter_xla on the sorted
+    indices that chip_smoke.py holds the kernel to: one node owning every
+    edge, a 20,480-edge run, runs across the kernel's chunk boundaries, a
+    node count that is not a multiple of its 4-node blocks, long stretches
+    of empty nodes. Dyadic data, so every f32 sum is exact in any order;
+    atol 2e-5 as above."""
+    l_max, n_max = sizes
+    sh, gm, src, n = chip_smoke.q_case_inputs(case, l_max, n_max)
+    want = np.asarray(q_scatter_xla(*map(jnp.asarray, (sh, gm, src)), n, l_max, n_max))
+    tsh, tgm, tsrc = _t(sh, gm, src)
+    got = fs.q_scatter(tsh, tgm, tsrc, n, l_max, n_max)
+    plain = fs.q_scatter_plain(tsh, tgm, tsrc, n, l_max, n_max)
+    for x in (got, plain):
+        assert tuple(x.shape) == (l_max * l_max * n_max, n) and x.dtype == torch.float32
+        np.testing.assert_allclose(x.numpy(), want, atol=2e-5)
+    empty = np.setdiff1d(np.arange(n), src)
+    assert empty.size and not got[:, empty].any()
 
 
 @pytest.mark.parametrize("op", ["q_scatter", "r1_gather", "r2_gather"])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_m3gnet_tpu.data.graph import pack_structures as jax_pack
 from torch_m3gnet_tpu.data.structure import Structure as JaxStructure
 from torch_m3gnet_tpu.ops.pallas_fused_triplet import backward_pair as jpair
@@ -110,6 +111,28 @@ def test_forward_and_vjp_match_pallas(interpret, case):
     got_g = torch.autograd.grad((got * torch.as_tensor(w)).sum(), (tb, tg))
     for x, y in zip(got_g, want_g):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
+
+
+@pytest.mark.parametrize("ln", [1, 9, 16])
+@pytest.mark.parametrize("case", chip_smoke.SORTED_CASES)
+def test_forward_sorted_index_cases(case, ln):
+    """The forward (Function and plain version) against
+    reference_triplet_gate_sum on the sorted e1 that chip_smoke.py holds the
+    kernel to: one edge owning every triplet, a 20,480-triplet run, runs
+    across the kernel's chunk boundaries, an edge count that is not a
+    multiple of its 256-edge blocks, long stretches of edges without
+    triplets; e2 uniform over the edges. Dyadic data, so every f32 sum is
+    exact in any order; TOL as above."""
+    basis, gate, e1, e2, e = chip_smoke.triplet_case_inputs(case, ln)
+    want = np.asarray(reference_triplet_gate_sum(*map(jnp.asarray, (basis, gate, e1, e2)), e))
+    tb, tg, te1, te2 = _t(basis, gate, e1, e2)
+    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e)
+    plain = ft.fused_triplet_gate_sum_plain(tb, tg, te1, te2, e)
+    for x in (got, plain):
+        assert tuple(x.shape) == (ln, e) and x.dtype == torch.float32
+        np.testing.assert_allclose(x.numpy(), want, **TOL)
+    empty = np.setdiff1d(np.arange(e), e1)
+    assert empty.size and not got[:, empty].any()
 
 
 @pytest.mark.parametrize("case", ["real", "padding-tail"])

@@ -25,86 +25,161 @@
 //     coalesced. The A[:, src[e]] reads are near-broadcasts (neighbouring
 //     edges share a source node) and are served by L1/L2. The MN-wide
 //     per-edge product lives in registers only.
-//   - q_scatter: one warp per node. Edges are sorted by source, so a node's
-//     edges are one contiguous range, found by binary search on src. Lanes
-//     stride over that range with coalesced loads, keep the MN partial sums
-//     in registers and finish with a fixed-order butterfly reduction: no
-//     atomics, so the result is deterministic. A node with no edges gets
-//     zeros; the last node's long padded tail is just a longer loop.
+//   - q_scatter: the sorted-owner sum. The offsets pass of
+//     segment_offsets.cuh writes each node's edge range [off[i], off[i+1])
+//     once, so nothing searches src. One block owns kQNodes = 4
+//     consecutive nodes (896 blocks of ~165 edges at the bench point, so
+//     each block's chain of dependent steps is short). Their edges are one
+//     contiguous span, which the block copies to shared memory in chunks
+//     of kQChunk edges with cp.async (the M rows of sh and the LN rows of
+//     gm, 16 bytes a copy where rows and pointers are 16-byte aligned; no
+//     registers held, so every copy of a chunk is in flight at once). Two
+//     neighbouring lanes own each (node, output row) pair and sum
+//     alternate edges of its run from shared memory into four partial
+//     sums, carried across chunks and combined in a fixed order (a
+//     one-step butterfly between the two lanes): no atomics, so two calls
+//     give the same bits, and a run of any length (the padded tail on the
+//     last node, or every edge on one node) is just more chunks. The
+//     blocks run from the last node down, so that the padded tail's block
+//     starts first. Neighbouring pairs own neighbouring nodes of one row,
+//     so the stores go out in runs of kQNodes floats. A node with no edges
+//     gets zeros.
 // The TPU version's windowed one-hot MXU matmuls, bf16 hi/lo split and
 // VMEM-resident accumulator exist for the TPU only and have no counterpart
 // here; A lives in device memory, so there is no node-count cap.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
-// given stream of the current device, allocates nothing, and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported
-// (l_max, n_max)).
+// given stream of the current device, allocates nothing (q_scatter takes an
+// (N + 1,) int32 scratch for the offsets), and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported (l_max, n_max)).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "segment_offsets.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kQBlock = 256;            // threads per q_scatter block
+constexpr int kQNodes = 4;              // nodes per q_scatter block
+constexpr int kQSplit = 2;              // neighbouring lanes that share one (node, row) sum
+constexpr int kQChunk = 512;            // edges staged per chunk
+constexpr int kQQuads = kQChunk / 4;
+constexpr int kQStride = kQChunk + 4;   // a staged row's stride in floats: 16-byte
+                                        // aligned, and rows start on other banks
 
-// First index in the sorted a[0, n) whose value is >= key.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
+// Row `row` of the staged chunk: sh rows first, then gm rows.
+__device__ __forceinline__ const float* staged_row(const float* sh, const float* gm, int row,
+                                                   int m, int num_edges) {
+  return row < m ? sh + (size_t)row * num_edges : gm + (size_t)(row - m) * num_edges;
+}
+
+// q_scatter after the offsets pass. Block b owns nodes [n0, n0 + kQNodes)
+// with n0 counted from the last node down, so that the block of the padded
+// tail (the last node's long run) starts first and overlaps the rest. Shared
+// memory holds a chunk of the block's edge span as M + LN rows (sh rows,
+// then gm rows) of kQStride floats: (M + LN) * kQStride floats of dynamic
+// shared memory. Pair p of the block is node p % kQNodes, output row
+// p / kQNodes; kQSplit neighbouring lanes share a pair, lane h summing the
+// edges h, h + kQSplit, ... of each chunk's run.
+template <int L, int NM>
+__global__ void __launch_bounds__(kQBlock)
+q_scatter_kernel(const float* __restrict__ sh, const float* __restrict__ gm,
+                 const int* __restrict__ offsets, float* __restrict__ out,
+                 int num_edges, int num_nodes, bool vec) {
+  constexpr int M = L * L;
+  constexpr int LN = L * NM;
+  constexpr int MN = M * NM;
+  constexpr int kRows = M + LN;
+  constexpr int kPairs = kQNodes * MN;
+  constexpr int kPairsPerPass = kQBlock / kQSplit;
+  constexpr int kPer = (kPairs + kPairsPerPass - 1) / kPairsPerPass;
+  extern __shared__ float4 stage4[];
+  float* stage = reinterpret_cast<float*>(stage4);
+
+  const int n0 = (gridDim.x - 1 - blockIdx.x) * kQNodes;
+  const int nodes = min(kQNodes, num_nodes - n0);
+  const int span_begin = __ldg(offsets + n0);
+  const int span_end = __ldg(offsets + n0 + nodes);
+  const int h = threadIdx.x % kQSplit;
+
+  int begin[kPer], end[kPer], s_off[kPer], g_off[kPer];
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int p = threadIdx.x / kQSplit + k * kPairsPerPass;
+    const int j = p % kQNodes, r = p / kQNodes;
+    const bool live = p < kPairs && j < nodes;
+    begin[k] = live ? __ldg(offsets + n0 + j) : 0;
+    end[k] = live ? __ldg(offsets + n0 + j + 1) : 0;
+    const int m = min(r / NM, M - 1), n = r % NM;
+    int l = 0;
+    while ((l + 1) * (l + 1) <= m) ++l;
+    s_off[k] = m * kQStride;
+    g_off[k] = (M + l * NM + n) * kQStride;
+    acc[k] = 0.f;
   }
-  return lo;
+
+  // With vec, chunks start on a multiple of 4 edges, so that every staged
+  // quad is one aligned 16-byte copy of a row; the edges before span_begin
+  // that this pulls in belong to other blocks and are never summed.
+  const int first = vec ? (span_begin & ~3) : span_begin;
+  for (int c0 = first; c0 < span_end; c0 += kQChunk) {
+    const int c1 = min(c0 + kQChunk, span_end);
+    __syncthreads();  // the previous chunk is consumed
+    // Item i is staged row i / kQQuads, quad i % kQQuads; without vec, four
+    // single edges.
+    const int width = vec ? (c1 - c0 + 3) & ~3 : c1 - c0;
+#pragma unroll
+    for (int i = threadIdx.x; i < kRows * kQQuads; i += kQBlock) {
+      const int row = i / kQQuads, q = i % kQQuads;
+      float* dst = stage + row * kQStride + 4 * q;
+      const float* src = staged_row(sh, gm, row, M, num_edges) + c0 + 4 * q;
+      if (vec) {
+        if (4 * q < width) cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * q + u < width) cp_async4(dst + u, src + u);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int lo = max(begin[k], c0) - c0, hi = min(end[k], c1) - c0;
+      const float* s_row = stage + s_off[k];
+      const float* g_row = stage + g_off[k];
+      // Four partial sums in a fixed order: independent FMA chains.
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      int i = lo + h;
+      for (; i + 3 * kQSplit < hi; i += 4 * kQSplit) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          part[u] = fmaf(s_row[i + u * kQSplit], g_row[i + u * kQSplit], part[u]);
+      }
+      for (; i < hi; i += kQSplit) part[0] = fmaf(s_row[i], g_row[i], part[0]);
+      acc[k] += (part[0] + part[1]) + (part[2] + part[3]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    // The lanes of a pair combine in a fixed butterfly: each ends with the
+    // same bits.
+    float v = acc[k];
+#pragma unroll
+    for (int off = 1; off < kQSplit; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    const int p = threadIdx.x / kQSplit + k * kPairsPerPass;
+    const int j = p % kQNodes;
+    if (h == 0 && p < kPairs && j < nodes) out[(size_t)(p / kQNodes) * num_nodes + n0 + j] = v;
+  }
 }
 
 // Loops below run over degree l and, inside it, over the components
 // m = l^2 .. (l+1)^2 - 1 of that degree, so that after unrolling every
 // register-array index is a compile-time constant.
-
-template <int L, int NM>
-__global__ void __launch_bounds__(kBlock)
-q_scatter_kernel(const float* __restrict__ sh, const float* __restrict__ gm,
-                 const int* __restrict__ src, float* __restrict__ out,
-                 int num_edges, int num_nodes) {
-  constexpr int M = L * L;
-  constexpr int LN = L * NM;
-  constexpr int MN = M * NM;
-  const int node = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;  // one warp per node
-  const int lane = threadIdx.x & 31;
-  if (node >= num_nodes) return;  // the whole warp leaves together
-  const int begin = lower_bound(src, num_edges, node);
-  const int end = lower_bound(src, num_edges, node + 1);
-
-  float acc[MN];
-#pragma unroll
-  for (int r = 0; r < MN; ++r) acc[r] = 0.f;
-  for (int e = begin + lane; e < end; e += 32) {
-    float g[LN];
-#pragma unroll
-    for (int j = 0; j < LN; ++j) g[j] = __ldg(gm + (size_t)j * num_edges + e);
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-#pragma unroll
-      for (int m = l * l; m < (l + 1) * (l + 1); ++m) {
-        const float s = __ldg(sh + (size_t)m * num_edges + e);
-#pragma unroll
-        for (int n = 0; n < NM; ++n)
-          acc[m * NM + n] = fmaf(s, g[l * NM + n], acc[m * NM + n]);
-      }
-    }
-  }
-  // Butterfly: every lane ends with the same full sums, in a fixed order.
-#pragma unroll
-  for (int r = 0; r < MN; ++r) {
-    float v = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    acc[r] = v;
-  }
-  // Lane r % 32 stores row r (MN <= 64 rows, so at most two rounds).
-#pragma unroll
-  for (int r = 0; r < MN; ++r)
-    if ((r & 31) == lane) out[(size_t)r * num_nodes + node] = acc[r];
-}
 
 template <int L, int NM>
 __global__ void __launch_bounds__(kBlock)
@@ -159,11 +234,21 @@ r2_gather_kernel(const float* __restrict__ a, const float* __restrict__ gm,
 }
 
 template <int L, int NM>
-void launch_q(const float* sh, const float* gm, const int* src, float* out,
-              int num_edges, int num_nodes, cudaStream_t stream) {
-  const long long threads = 32LL * num_nodes;
-  const int grid = (int)((threads + kBlock - 1) / kBlock);
-  q_scatter_kernel<L, NM><<<grid, kBlock, 0, stream>>>(sh, gm, src, out, num_edges, num_nodes);
+cudaError_t launch_q(const float* sh, const float* gm, const int* src, int* offsets,
+                     float* out, int num_edges, int num_nodes, cudaStream_t stream) {
+  constexpr int kSmem = (L * L + L * NM) * kQStride * (int)sizeof(float);
+  if (kSmem > 48 * 1024) {  // (l_max, n_max) = (4, 4) stages 66 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        q_scatter_kernel<L, NM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  launch_segment_offsets(src, offsets, num_edges, num_nodes, stream);
+  const bool vec = num_edges % 4 == 0 && reinterpret_cast<uintptr_t>(sh) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(gm) % 16 == 0;
+  const int grid = (num_nodes + kQNodes - 1) / kQNodes;
+  q_scatter_kernel<L, NM><<<grid, kQBlock, kSmem, stream>>>(sh, gm, offsets, out, num_edges,
+                                                           num_nodes, vec);
+  return cudaSuccess;
 }
 
 template <int L, int NM>
@@ -188,8 +273,11 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
   X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(2, 1) X(2, 2) X(2, 3) X(2, 4) \
   X(3, 1) X(3, 2) X(3, 3) X(3, 4) X(4, 1) X(4, 2) X(4, 3) X(4, 4)
 
-#define M3G_CASE_q(L_, N_) \
-  case L_ * 8 + N_: launch_q<L_, N_>(x, y, idx, o, num_edges, num_nodes, s); break;
+#define M3G_CASE_q(L_, N_)                                                          \
+  case L_ * 8 + N_: {                                                               \
+    const cudaError_t err = launch_q<L_, N_>(x, y, idx, off, o, num_edges, num_nodes, s); \
+    if (err != cudaSuccess) return (int)err;                                        \
+  } break;
 #define M3G_CASE_r1(L_, N_) \
   case L_ * 8 + N_: launch_r1<L_, N_>(x, y, idx, o, num_edges, num_nodes, s); break;
 #define M3G_CASE_r2(L_, N_) \
@@ -212,8 +300,25 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
     return (int)cudaGetLastError();                                             \
   }
 
-// q_scatter(sh, gm, src) -> A (MN, num_nodes); in0 = sh, in1 = gm.
-M3G_ENTRY(m3g_q_scatter, q)
+// q_scatter(sh, gm, src) -> A (MN, num_nodes); offsets is an
+// (num_nodes + 1,) int32 scratch.
+extern "C" int m3g_q_scatter(const void* sh, const void* gm, const void* src, void* offsets,
+                             void* out, int num_edges, int num_nodes, int l_max, int n_max,
+                             void* stream) {
+  const float* x = static_cast<const float*>(sh);
+  const float* y = static_cast<const float*>(gm);
+  const int* idx = static_cast<const int*>(src);
+  int* off = static_cast<int*>(offsets);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (l_max * 8 + n_max) {
+    M3G_CASES(M3G_CASE_q)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 // r1_gather(A, sh, src) -> out (LN, num_edges); in0 = A, in1 = sh.
 M3G_ENTRY(m3g_r1_gather, r1)
 // r2_gather(A, gm, src) -> out (M, num_edges); in0 = A, in1 = gm.

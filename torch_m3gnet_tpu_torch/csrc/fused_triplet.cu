@@ -26,13 +26,23 @@
 // the g[:, e1[t]] reads and the d_gate adds, fall in a short window of
 // columns (both edges of a triplet share a source node and edges are sorted
 // by source), so L1/L2 serve them.
-//   - forward: one warp per output edge. e1 is sorted, so an edge's triplets
-//     are one contiguous range; the warp finds its start with a 32-way
-//     search (each round probes 32 evenly spaced points, so ~5 rounds cover
-//     a million triplets), then its lanes walk the range 32 triplets at a
-//     time with coalesced loads, keep LN partial sums in registers and end
-//     with a fixed-order butterfly. No atomics: deterministic. An edge with
-//     no triplets stores zeros; the padded edge's long tail is a longer loop.
+//   - forward: the sorted-owner sum of B8 with the gate product fused into
+//     the staging. The offsets pass of segment_offsets.cuh turns the sorted
+//     e1 into each edge's triplet range [off[e], off[e+1]), so nothing
+//     searches e1 and e1 is read by that pass only. One block owns
+//     kFwdEdges = 256 consecutive edges, one thread each (576 blocks at the
+//     bench point: one wave). Their triplets are one contiguous span, which
+//     the block streams in chunks of kFwdStage / (LN + 1) triplets: e2 and
+//     the LN rows of basis are copied to shared memory with cp.async (16
+//     bytes a copy where rows and pointers are 16-byte aligned; no
+//     registers held, so every copy of a chunk is in flight at once), then
+//     each row is multiplied in place by gate[:, e2[t]] from L1/L2. Each
+//     thread then sums its edge's run of the chunk in triplet order into
+//     LN chunk partials that it adds to LN sums carried across chunks: no
+//     atomics and a fixed order, so two calls give the same bits. An edge
+//     with no triplet costs one comparison of two offsets; the padded
+//     edge's long run is just more chunks, and its block (the blocks run
+//     from the last edge down) starts first.
 //   - backward: one thread per triplet. d_basis is a streaming write; d_gate
 //     scatters by the unsorted e2, with f32 atomicAdd into an output the
 //     entry point zeroes first (cudaMemsetAsync on the same stream). Its
@@ -41,74 +51,100 @@
 // split, sequential grid and VMEM residency have no counterpart here.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
-// given stream of the current device, allocates nothing, and returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported LN).
+// given stream of the current device, allocates nothing (the forward takes
+// an (E + 1,) int32 scratch for the offsets), and returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unsupported LN).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "segment_offsets.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlock = 256;       // threads per block of the backward
+constexpr int kFwdEdges = 256;    // edges (threads) per block of the forward
+constexpr int kFwdStage = 8192;   // 4-byte words staged per forward chunk (32 KB)
 
-// First index in the sorted a[0, n) whose value is >= key, found by the
-// whole warp (every lane gets the same answer). Each round probes 32 evenly
-// spaced points of [lo, hi); the ballot of "a[p] < key" is a prefix of the
-// lanes because a is sorted, and the boundary lies in the gap after the
-// last lane that is below.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a, int n, int key,
-                                                int lane) {
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const int stride = (hi - lo + 31) >> 5;
-    const int p = lo + lane * stride;
-    const bool below = p < hi && __ldg(a + p) < key;
-    const int c = __popc(__ballot_sync(kFull, below));
-    if (c == 0) {
-      hi = lo;
-    } else {
-      hi = min(lo + c * stride, hi);
-      lo = lo + (c - 1) * stride + 1;
-    }
-  }
-  return lo;
-}
-
+// The forward after the offsets pass. Block b owns edges [e0, e0 + kFwdEdges)
+// with e0 counted from the last edge down, so that the block of the padded
+// edge (its long run) starts first and overlaps the rest. Shared memory
+// holds a chunk of the block's triplet span: e2 and the LN rows of basis,
+// each row then multiplied in place by the gathered gate row.
 template <int LN>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kFwdEdges)
 fused_triplet_gate_sum_kernel(const float* __restrict__ basis, const float* __restrict__ gate,
-                              const int* __restrict__ e1, const int* __restrict__ e2,
-                              float* __restrict__ out, int num_edges, int num_trip) {
-  const int e = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (e >= num_edges) return;  // the whole warp leaves together
+                              const int* __restrict__ offsets, const int* __restrict__ e2,
+                              float* __restrict__ out, int num_edges, int num_trip, bool vec) {
+  // Triplets per chunk: a multiple of 32, so that every staged row starts
+  // 16-byte aligned.
+  constexpr int kChunk = (kFwdStage / (LN + 1)) & ~31;
+  __shared__ __align__(16) int k_s[kChunk];
+  __shared__ __align__(16) float prod[LN * kChunk];
+  const int e0 = (gridDim.x - 1 - blockIdx.x) * kFwdEdges;
+  const int e = e0 + threadIdx.x;
+  const bool live = e < num_edges;
+  const int span_begin = __ldg(offsets + e0);
+  const int span_end = __ldg(offsets + min(e0 + kFwdEdges, num_edges));
+  const int begin = live ? __ldg(offsets + e) : 0;
+  const int end = live ? __ldg(offsets + e + 1) : 0;
 
   float acc[LN];
 #pragma unroll
   for (int r = 0; r < LN; ++r) acc[r] = 0.f;
-  for (int base = warp_lower_bound(e1, num_trip, e, lane); base < num_trip; base += 32) {
-    const int t = base + lane;
-    const bool mine = t < num_trip && __ldg(e1 + t) == e;
-    if (mine) {
-      const float* __restrict__ g = gate + __ldg(e2 + t);
+  // With vec, chunks start on a multiple of 4 triplets, so that every staged
+  // quad is one aligned 16-byte copy; the triplets outside the span that
+  // this pulls in are never summed.
+  const int first = vec ? (span_begin & ~3) : span_begin;
+  for (int c0 = first; c0 < span_end; c0 += kChunk) {
+    const int c1 = min(c0 + kChunk, span_end);
+    const int width = vec ? (c1 - c0 + 3) & ~3 : c1 - c0;
+    __syncthreads();  // the previous chunk is consumed
+    // Item i is staged row i / (kChunk / 4) (row 0 is e2, row 1 + r is
+    // basis row r), quad i % (kChunk / 4); without vec, 4 single words.
 #pragma unroll
-      for (int r = 0; r < LN; ++r)
-        acc[r] = fmaf(__ldg(basis + (size_t)r * num_trip + t), __ldg(g + (size_t)r * num_edges),
-                      acc[r]);
+    for (int i = threadIdx.x; i < (LN + 1) * (kChunk / 4); i += kFwdEdges) {
+      const int row = i / (kChunk / 4), q = i % (kChunk / 4);
+      const void* src = row == 0 ? static_cast<const void*>(e2 + c0)
+                                 : static_cast<const void*>(basis + (size_t)(row - 1) * num_trip + c0);
+      void* dst = row == 0 ? static_cast<void*>(k_s) : static_cast<void*>(prod + (row - 1) * kChunk);
+      if (vec) {
+        if (4 * q < width)
+          cp_async16(static_cast<char*>(dst) + 16 * q, static_cast<const char*>(src) + 16 * q);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * q + u < width)
+            cp_async4(static_cast<char*>(dst) + 4 * (4 * q + u),
+                      static_cast<const char*>(src) + 4 * (4 * q + u));
+      }
     }
-    if (!__all_sync(kFull, mine)) break;  // the range ends in this chunk
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = threadIdx.x; i < width; i += kFwdEdges) {
+      const float* g = gate + k_s[i];
+#pragma unroll
+      for (int r = 0; r < LN; ++r) prod[r * kChunk + i] *= __ldg(g + (size_t)r * num_edges);
+    }
+    __syncthreads();
+    const int lo = max(begin, c0) - c0, hi = min(end, c1) - c0;
+    if (lo < hi) {
+      float part[LN];
+#pragma unroll
+      for (int r = 0; r < LN; ++r) part[r] = 0.f;
+      for (int i = lo; i < hi; ++i) {
+#pragma unroll
+        for (int r = 0; r < LN; ++r) part[r] += prod[r * kChunk + i];
+      }
+#pragma unroll
+      for (int r = 0; r < LN; ++r) acc[r] += part[r];
+    }
   }
-  // Butterfly: every lane ends with the same full sums, in a fixed order.
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < LN; ++r) {
-    float v = acc[r];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-    acc[r] = v;
+    for (int r = 0; r < LN; ++r) out[(size_t)r * num_edges + e] = acc[r];
   }
-#pragma unroll
-  for (int r = 0; r < LN; ++r)
-    if (r == lane) out[(size_t)r * num_edges + e] = acc[r];
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -129,12 +165,14 @@ backward_pair_kernel(const float* __restrict__ basis, const float* __restrict__ 
 }
 
 template <int LN>
-void launch_fwd(const float* basis, const float* gate, const int* e1, const int* e2,
+void launch_fwd(const float* basis, const float* gate, const int* e1, const int* e2, int* offsets,
                 float* out, int num_edges, int num_trip, cudaStream_t stream) {
-  const long long threads = 32LL * num_edges;
-  const int grid = (int)((threads + kBlock - 1) / kBlock);
-  fused_triplet_gate_sum_kernel<LN><<<grid, kBlock, 0, stream>>>(basis, gate, e1, e2, out,
-                                                                 num_edges, num_trip);
+  launch_segment_offsets(e1, offsets, num_trip, num_edges, stream);
+  const bool vec = num_trip % 4 == 0 && reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(e2) % 16 == 0;
+  const int grid = (num_edges + kFwdEdges - 1) / kFwdEdges;
+  fused_triplet_gate_sum_kernel<LN><<<grid, kFwdEdges, 0, stream>>>(basis, gate, offsets, e2, out,
+                                                                 num_edges, num_trip, vec);
 }
 
 }  // namespace
@@ -145,16 +183,18 @@ void launch_fwd(const float* basis, const float* gate, const int* e1, const int*
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) \
   X(16)
 #define M3G_CASE_FWD(LN_) \
-  case LN_: launch_fwd<LN_>(b, gt, i1, i2, o, num_edges, num_trip, s); break;
+  case LN_: launch_fwd<LN_>(b, gt, i1, i2, off, o, num_edges, num_trip, s); break;
 
-// fused_triplet_gate_sum(basis (rows, T), gate (rows, E), e1, e2) -> out (rows, E).
+// fused_triplet_gate_sum(basis (rows, T), gate (rows, E), e1, e2) -> out (rows,
+// E); offsets is an (E + 1,) int32 scratch.
 extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, const void* e1,
-                                          const void* e2, void* out, int rows, int num_edges,
-                                          int num_trip, void* stream) {
+                                          const void* e2, void* offsets, void* out, int rows,
+                                          int num_edges, int num_trip, void* stream) {
   const float* b = static_cast<const float*>(basis);
   const float* gt = static_cast<const float*>(gate);
   const int* i1 = static_cast<const int*>(e1);
   const int* i2 = static_cast<const int*>(e2);
+  int* off = static_cast<int*>(offsets);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {

@@ -17,10 +17,11 @@
 //
 // What the design does about it: no atomics and a fixed summation order, so
 // two calls on the same inputs give the same bits (index_add does not).
-//   1. segment_offsets: one thread per boundary m in [0, M] writes
-//      offsets[s] = first m with seg[m] >= s for every s in (seg[m-1],
-//      seg[m]], so each of the S + 1 offsets is written exactly once and no
-//      thread searches.
+//   1. segment_offsets (segment_offsets.cuh, shared with q_scatter and
+//      fused_triplet_gate_sum): each boundary m in [0, M] writes offsets[s]
+//      = first m with seg[m] >= s for every s in (seg[m-1], seg[m]], so
+//      each of the S + 1 offsets is written exactly once and no thread
+//      searches.
 //   2. The sums, chosen by the mean run length M / S (a function of the
 //      shapes only, so the same call always takes the same path):
 //      - segment_sum_tiled: one block per (row, 256 consecutive segments).
@@ -45,23 +46,13 @@
 
 #include <cuda_runtime.h>
 
+#include "segment_offsets.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
 constexpr int kTile = 8192;    // floats of a row staged per tile (32 KB)
 constexpr int kLongRun = 256;  // mean run above which a block owns a run
-
-__global__ void __launch_bounds__(kBlock)
-segment_offsets(const int* __restrict__ seg, int* __restrict__ offsets, int m_len,
-                int num_segments) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m > m_len) return;
-  const int prev = m == 0 ? -1 : __ldg(seg + m - 1);
-  const int next = m == m_len ? num_segments : __ldg(seg + m);
-  // Clamped so that ids outside [0, S) cannot write out of bounds.
-  const int lo = max(prev + 1, 0), hi = min(next, num_segments);
-  for (int s = lo; s <= hi; ++s) offsets[s] = (int)m;
-}
 
 __global__ void __launch_bounds__(kBlock)
 segment_sum_tiled(const float* __restrict__ data, const int* __restrict__ offsets,
@@ -129,9 +120,7 @@ extern "C" int m3g_sorted_segment_sum(const void* data, const void* seg, void* o
   const float* x = static_cast<const float*>(data);
   int* off = static_cast<int*>(offsets);
   float* o = static_cast<float*>(out);
-  const long long bounds = (long long)m_len + 1;
-  segment_offsets<<<(int)((bounds + kBlock - 1) / kBlock), kBlock, 0, s>>>(
-      static_cast<const int*>(seg), off, m_len, num_segments);
+  launch_segment_offsets(static_cast<const int*>(seg), off, m_len, num_segments, s);
   if (m_len / num_segments > kLongRun) {
     segment_sum_block<<<dim3(num_segments, rows), kBlock, 0, s>>>(x, off, o, m_len,
                                                                  num_segments);

@@ -28,15 +28,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argument types; every entry returns cudaError_t as int
 # and takes the stream last.
 _ENTRIES = {
+    # (sh, gm, src, offsets scratch, out, num_edges, num_nodes, l_max, n_max, stream)
+    "m3g_q_scatter": [_P] * 5 + [_I] * 4 + [_P],
     # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, stream)
-    "m3g_q_scatter": [_P] * 4 + [_I] * 4 + [_P],
     "m3g_r1_gather": [_P] * 4 + [_I] * 4 + [_P],
     "m3g_r2_gather": [_P] * 4 + [_I] * 4 + [_P],
     # (data or vals, idx, out, rows, num_cols, num_idx, stream)
     "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
     "m3g_windowed_scatter": [_P] * 3 + [_I] * 3 + [_P],
-    # (basis, gate, e1, e2, out, rows, num_edges, num_trip, stream)
-    "m3g_fused_triplet_gate_sum": [_P] * 5 + [_I] * 3 + [_P],
+    # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip, stream)
+    "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 3 + [_P],
     # (basis, gate, g, e1, e2, d_basis, d_gate, rows, num_edges, num_trip, stream)
     "m3g_backward_pair": [_P] * 7 + [_I] * 3 + [_P],
     # (data, seg, offsets scratch, out, rows, num_rows_m, num_segments, stream)
@@ -67,12 +68,12 @@ def sources() -> list[Path]:
 
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library in ``_build/`` unless the
-    same sources were built before; returns the library path. The
-    compilers' reports (``-Xptxas -v``: registers, spills) are kept beside
-    it as ``<lib>.log``."""
+    same sources and headers (``csrc/*.cuh``) were built before; returns the
+    library path. The compilers' reports (``-Xptxas -v``: registers, spills)
+    are kept beside it as ``<lib>.log``."""
     srcs = sources()
     digest = hashlib.sha256()
-    for src in srcs:
+    for src in srcs + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     lib = BUILD_DIR / f"libm3g_kernels_{digest.hexdigest()[:16]}.so"
     if lib.exists():

@@ -13,7 +13,8 @@ and the VJPs need the companion
 with sh the real harmonics (M = l_max^2 rows grouped by degree, so
 l_m = floor(sqrt(m))), gm with LN = l_max*n_max rows and A with
 MN = M*n_max rows, all feature-major (rows, entities). ``src`` is sorted
-ascending with values in [0, N); the kernels rely on both.
+ascending with values in [0, N); the kernels rely on both (``q_scatter``
+takes each node's edge range from an offsets pass over ``src``).
 
 Each op has a hand-written CUDA kernel (``csrc/factorized_stage.cu``), a
 plain torch version (``*_plain``) and an ``autograd.Function``. The Function
@@ -136,9 +137,15 @@ def _q_forward(sh, gm, src, num_nodes, l_max, n_max):
     m, ln, mn, e = l_max * l_max, l_max * n_max, l_max * l_max * n_max, src.shape[0]
     if not _check("q_scatter", l_max, n_max, src, [("sh", sh, (m, e)), ("gm", gm, (ln, e))]):
         return q_scatter_plain(sh, gm, src, num_nodes, l_max, n_max)
-    out = torch.empty((mn, num_nodes), dtype=torch.float32, device=sh.device)
-    return _launch("q_scatter", sh.contiguous(), gm.contiguous(), src, out,
-                   e, num_nodes, l_max, n_max)
+    dev = sh.device
+    out = torch.empty((mn, num_nodes), dtype=torch.float32, device=dev)
+    if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
+        return out
+    sh, gm = sh.contiguous(), gm.contiguous()
+    offsets = torch.empty(num_nodes + 1, dtype=torch.int32, device=dev)
+    _cuda.launch(LAUNCHES, "q_scatter", "m3g_q_scatter", dev, sh.data_ptr(), gm.data_ptr(),
+                 src.data_ptr(), offsets.data_ptr(), out.data_ptr(), e, num_nodes, l_max, n_max)
+    return out
 
 
 def _r_forward(name, a, other, src, l_max, n_max):

@@ -12,8 +12,9 @@ and its VJP, itself a first-class op:
     dG[:, e] = sum_{t: e2[t]=e} g[:, e1[t]] * basis[:, t]            (LN, E)
 
 ``e1`` (the triplet's i->j edge) is int32, sorted ascending, in [0, E): the
-forward kernel finds each edge's triplets by searching it. ``e2`` (the i->k
-edge) is int32 in [0, E), unsorted. Padded triplets carry zero basis.
+forward kernel takes each edge's run of triplets from an offsets pass over
+it. ``e2`` (the i->k edge) is int32 in [0, E), unsorted. Padded triplets
+carry zero basis.
 
 Each op has a hand-written CUDA kernel (``csrc/fused_triplet.cu``), a plain
 torch version (``*_plain``) and an ``autograd.Function``. The Function runs
@@ -100,9 +101,10 @@ def _forward(basis_fm, gate_e_fm, e1, e2, num_edges):
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
     basis_fm, gate_e_fm = basis_fm.contiguous(), gate_e_fm.contiguous()
+    offsets = torch.empty(num_edges + 1, dtype=torch.int32, device=out.device)
     _cuda.launch(LAUNCHES, name, "m3g_fused_triplet_gate_sum", out.device,
                  basis_fm.data_ptr(), gate_e_fm.data_ptr(), e1.data_ptr(), e2.data_ptr(),
-                 out.data_ptr(), rows, num_edges, t)
+                 offsets.data_ptr(), out.data_ptr(), rows, num_edges, t)
     return out
 
 
