@@ -11,15 +11,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    the bench shapes (the ``src``, ``triplet_e1``, ``triplet_e2`` and
    ``edge_graph`` of the real bench batch, seeded inputs), forward and VJP:
    the composed factorized stage (B1-B3), ``fused_triplet_gate_sum``
-   through ``backward_pair`` (B4, B5), ``windowed_take_fm`` through
+   through ``backward_pair`` (B4, B5, with the batch's e2 order; B5 two
+   calls bitwise equal), ``windowed_take_fm`` through
    ``windowed_scatter_fm`` (B6, B7), and ``sorted_segment_sum`` (B8) at the
-   four sorted sums of the path: forward, VJP (the gather), gradient of the
-   gradient (B8 again) and two calls bitwise equal; then B1 and B4 on the
-   sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
+   four sorted sums of the path, with the batch's offsets where the model
+   passes them: forward, VJP (the gather), gradient of the gradient (B8
+   again), two calls bitwise equal and equal to a call that runs the
+   kernel's own offsets pass; then B1, B4 and B5 on
+   the sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
    20,480-entry run, runs across chunk boundaries, a ragged segment count,
-   long stretches of empty segments) at (l_max, n_max) = (1, 1), (3, 3),
-   (4, 4) and LN = 1, 9, 16: against the plain versions, two calls
-   bitwise equal;
+   long stretches of empty segments; B4 and B5 with uniform random e2) at
+   (l_max, n_max) = (1, 1), (3, 3), (4, 4) and LN = 1, 9, 16: equal to the
+   plain versions (dyadic data, exact sums), two calls bitwise equal;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -39,9 +42,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    stays finite; the two modes' first losses agree;
 7. times: each mode's eval step (CUDA events, median of 50) with a profiler
    breakdown, each mode's train step (median of 20) with its breakdown,
-   and each kernel beside its plain version, its bound and, where one
-   PyTorch call computes the same function, that call (cold L2, median of
-   30), with its time split by CUDA kernel (``parts_us``).
+   then from the host batch (median of 10: each step copies the batch,
+   checks its indices and builds its mode's kernel index), the device time
+   of building each part of that index (the offsets of ``edge_src`` and
+   ``triplet_e1``, the e2 order) and its sum per mode, and each kernel beside
+   its plain version, its bound and, where one PyTorch call computes the
+   same function, that call (median of 30), with its time split by CUDA
+   kernel (``parts_us``). Kernel times come under three L2 states (see
+   ``time_device``): ``ms`` after a clean flush (a 256 MB read that leaves
+   no dirty line), ``cold_dirty_us`` after the older ``zero_()`` flush
+   (dirty lines that the timed call writes back) and ``warm_us`` with the
+   inputs just touched; the plain, library and ``parts_us`` times take the
+   clean flush.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
@@ -77,10 +89,11 @@ MODEL_TOL = 1e-4
 # Card vs CPU for one training step: the loss within MODEL_TOL, and each
 # weight gradient within TRAIN_TOL of that tensor's largest magnitude. The
 # gradients go through the double backward of three blocks: f32 sums over
-# 147k edges in other orders (B5/B7 atomics, cuBLAS, the atomics of the
-# index_add sums by dst on the card; sequential on the CPU); the CPU
-# rehearsal at 2,816 edges left
-# 1.8e-6 between f32 and f64 in the worst tensor.
+# 147k edges in other orders (B7's atomics, cuBLAS, the atomics of the
+# index_add sums by dst on the card; sequential on the CPU; B5 sums by the
+# e2 order with no atomics, so it no longer varies between runs); the CPU
+# rehearsal at 2,816 edges left 1.8e-6 between f32 and f64 in the worst
+# tensor.
 TRAIN_TOL = 2e-4
 # Fused mode vs factorized mode on the card, as a fraction of the largest
 # magnitude: one function through two f32 algorithms. The factorized stage
@@ -225,9 +238,10 @@ def triplet_case_inputs(case: str, ln: int):
 
 
 def check_sorted_index_cases() -> None:
-    """B1 and B4 against their plain versions on every case of
+    """B1, B4 and B5 against their plain versions on every case of
     ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) and LN = 1,
-    9, 16, and two kernel calls bitwise equal."""
+    9, 16: equal to them (dyadic data: every sum is exact in any order),
+    and two kernel calls bitwise equal."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
@@ -235,10 +249,15 @@ def check_sorted_index_cases() -> None:
 
     def run(label, kernel, plain):
         with torch.no_grad():
-            got, again = kernel(), kernel()
-            check(label, got, plain(), FWD_TOL)
-        if not torch.equal(got, again):
-            raise AssertionError(f"{label}: two calls differ")
+            # each a tuple of outputs: backward_pair has two
+            calls = [o if isinstance(o, tuple) else (o,) for o in (kernel(), kernel(), plain())]
+        for part, (x, y, w) in enumerate(zip(*calls)):
+            name = label if part == 0 else f"{label} (output {part + 1})"
+            check(name, x, w, FWD_TOL)
+            if not torch.equal(x, w):
+                raise AssertionError(f"{name}: differs from the plain version on dyadic data")
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: two calls differ")
 
     for case in SORTED_CASES:
         for l_max, n_max in ((1, 1), (3, 3), (4, 4)):
@@ -248,11 +267,18 @@ def check_sorted_index_cases() -> None:
                 f"N = {n}", lambda: fs.q_scatter(*args), lambda: fs.q_scatter_plain(*args))
         for ln in (1, 9, 16):
             basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
-            args = tuple(torch.as_tensor(x, device="cuda") for x in (basis, gate, e1, e2)) + (e,)
-            run(f"fused_triplet_gate_sum {case} LN = {ln}, T = {e1.shape[0]}, E = {e}",
-                lambda: ft.fused_triplet_gate_sum(*args),
-                lambda: ft.fused_triplet_gate_sum_plain(*args))
-    print("  every case: two calls bitwise equal")
+            g = dyadic(np.random.default_rng(60 + ln), gate.shape)
+            tb, tgt, tg, te1, te2 = (torch.as_tensor(x, device="cuda")
+                                     for x in (basis, gate, g, e1, e2))
+            order = ft.triplet_e2_order(te2, e)
+            tag = f"{case} LN = {ln}, T = {e1.shape[0]}, E = {e}"
+            run(f"fused_triplet_gate_sum {tag}",
+                lambda: ft.fused_triplet_gate_sum(tb, tgt, te1, te2, e, order),
+                lambda: ft.fused_triplet_gate_sum_plain(tb, tgt, te1, te2, e))
+            run(f"backward_pair {tag}",
+                lambda: ft.backward_pair(tb, tgt, tg, te1, te2, e, order),
+                lambda: ft.backward_pair_plain(tb, tgt, tg, te1, te2, e))
+    print("  every case: equal to the plain version, two calls bitwise equal")
 
 
 def check_kernels(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, float]:
@@ -340,15 +366,20 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
 
     basis, gate, g, data, vals = triplet_inputs(gbatch, ln, f)
     e1, e2, e = gbatch.triplet_e1, gbatch.triplet_e2, gbatch.num_edges
+    order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
     errs = {}
     with torch.no_grad():
         errs["fused_triplet_gate_sum"] = check(
-            "fused_triplet_gate_sum", ft.fused_triplet_gate_sum(basis, gate, e1, e2, e),
+            "fused_triplet_gate_sum", ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, order),
             ft.fused_triplet_gate_sum_plain(basis, gate, e1, e2, e), FWD_TOL)
-        got = ft.backward_pair(basis, gate, g, e1, e2, e)
+        got = ft.backward_pair(basis, gate, g, e1, e2, e, order)
+        again = ft.backward_pair(basis, gate, g, e1, e2, e, order)
         want = ft.backward_pair_plain(basis, gate, g, e1, e2, e)
         errs["backward_pair"] = max(check("backward_pair d_basis", got[0], want[0], FWD_TOL),
                                     check("backward_pair d_gate", got[1], want[1], FWD_TOL))
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError("backward_pair: two calls differ")
+        print("  backward_pair: two calls bitwise equal")
         take_errs, scatter_errs = [], []
         for label, idx in (("e1", e1), ("e2", e2)):
             take_errs.append(check(f"windowed_take_fm ({label})", wt.windowed_take_fm(data, idx),
@@ -360,10 +391,10 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
 
     def fused_grads(fused):
         b, gt = basis.clone().requires_grad_(True), gate.clone().requires_grad_(True)
-        return torch.autograd.grad(torch.sin(fused(b, gt, e1, e2, e)).sum(), (b, gt))
+        return torch.autograd.grad(torch.sin(fused(b, gt)).sum(), (b, gt))
 
-    got = fused_grads(ft.fused_triplet_gate_sum)
-    want = fused_grads(ft.fused_triplet_gate_sum_plain)
+    got = fused_grads(lambda b, gt: ft.fused_triplet_gate_sum(b, gt, e1, e2, e, order))
+    want = fused_grads(lambda b, gt: ft.fused_triplet_gate_sum_plain(b, gt, e1, e2, e))
     check("fused VJP d_basis (backward_pair kernel)", got[0], want[0], VJP_TOL)
     check("fused VJP d_gate (backward_pair kernel)", got[1], want[1], VJP_TOL)
 
@@ -469,18 +500,21 @@ def check_fused_model(pot, out_factorized, batch, gbatch, cfg):
     return pot_f, out, launches
 
 
-def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int]]:
-    """(label, F, sorted ids, segments) of the four sorted sums that B8 takes
-    on the path, at the batch's shapes: the node aggregation (per block) and
+def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int, object]]:
+    """(label, F, sorted ids, segments, the batch's offsets of the ids or
+    None) of the four sorted sums that B8 takes on the path, at the batch's
+    shapes, as the model calls them: the node aggregation (per block) and
     the forces by ``edge_src``, the gather-mode triplet->edge sum by
-    ``triplet_e1``, the strain stress by ``edge_graph``."""
+    ``triplet_e1`` (these three with the batch's offsets), the strain stress
+    by ``edge_graph`` (with the kernel's own offsets pass)."""
     src = gbatch.edge_src
     edge_graph = gbatch.node_graph.index_select(0, src)
     return [
-        ("node aggregation by src", 64, src, gbatch.num_nodes),
-        ("gather-mode e1 sum", 9, gbatch.triplet_e1, gbatch.num_edges),
-        ("forces by src", 3, src, gbatch.num_nodes),
-        ("strain stress by edge_graph", 9, edge_graph, gbatch.num_graphs),
+        ("node aggregation by src", 64, src, gbatch.num_nodes, gbatch.edge_src_offsets),
+        ("gather-mode e1 sum", 9, gbatch.triplet_e1, gbatch.num_edges,
+         gbatch.triplet_e1_offsets),
+        ("forces by src", 3, src, gbatch.num_nodes, gbatch.edge_src_offsets),
+        ("strain stress by edge_graph", 9, edge_graph, gbatch.num_graphs, None),
     ]
 
 
@@ -492,43 +526,51 @@ def seeded(shape, device, seed: int):
 
 
 def check_sorted_segment(gbatch) -> float:
-    """B8 against its plain version (``index_add``) at the four shapes:
-    forward, VJP (the gather), gradient of the gradient (whose backward runs
-    B8 again), and two kernel calls bitwise equal."""
+    """B8 against its plain version (``index_add``) at the four shapes, as
+    the model calls it: forward, VJP (the gather), gradient of the gradient
+    (whose backward runs B8 again), two kernel calls bitwise equal, and,
+    where the batch's offsets are given, bitwise equal to the call that
+    runs the kernel's own offsets pass."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
 
     errs = []
-    for i, (label, f, seg, nseg) in enumerate(sorted_sum_cases(gbatch)):
+    for i, (label, f, seg, nseg, off) in enumerate(sorted_sum_cases(gbatch)):
         x = seeded((f, seg.shape[0]), seg.device, 10 + i)
         w = seeded((f, nseg), seg.device, 20 + i)
         with torch.no_grad():
-            got = ss.sorted_segment_sum_fm(x, seg, nseg)
-            again = ss.sorted_segment_sum_fm(x, seg, nseg)
+            got = ss.sorted_segment_sum_fm(x, seg, nseg, off)
+            again = ss.sorted_segment_sum_fm(x, seg, nseg, off)
+            own_pass = ss.sorted_segment_sum_fm(x, seg, nseg)
             errs.append(check(f"sorted_segment_sum {label} (F={f}, M={seg.shape[0]}, S={nseg})",
                               got, ss.sorted_segment_sum_fm_plain(x, seg, nseg), FWD_TOL))
-        if not torch.equal(got, again):
+        if not (torch.equal(got, again) and torch.equal(got, own_pass)):
             raise AssertionError(f"sorted_segment_sum {label}: two calls differ")
-        print(f"  sorted_segment_sum {label}: two calls bitwise equal")
+        print(f"  sorted_segment_sum {label}: two calls bitwise equal"
+              + ("" if off is None else ", and equal to the kernel's own offsets pass"))
 
         def vjp(op):
             xx = x.clone().requires_grad_(True)
-            return torch.autograd.grad((op(xx, seg, nseg) * w).sum(), xx)[0]
+            return torch.autograd.grad((op(xx) * w).sum(), xx)[0]
 
         def grad_of_grad(op):
             # A quadratic loss: a periodic one would turn the rounding of
             # sums of ~4,600 terms (the stress row) into large phase errors.
             xx = x.clone().requires_grad_(True)
-            y = op(xx, seg, nseg)
+            y = op(xx)
             (g,) = torch.autograd.grad((y * y).sum(), xx, create_graph=True)
             return torch.autograd.grad((g * g).sum(), xx)[0]
 
-        check(f"  VJP (gather) {label}", vjp(ss.sorted_segment_sum_fm),
-              vjp(ss.sorted_segment_sum_fm_plain), VJP_TOL)
+        def kernel(d):
+            return ss.sorted_segment_sum_fm(d, seg, nseg, off)
+
+        def plain(d):
+            return ss.sorted_segment_sum_fm_plain(d, seg, nseg)
+
+        check(f"  VJP (gather) {label}", vjp(kernel), vjp(plain), VJP_TOL)
         check(f"  grad of grad (B8 in the double backward) {label}",
-              grad_of_grad(ss.sorted_segment_sum_fm),
-              grad_of_grad(ss.sorted_segment_sum_fm_plain), VJP_TOL)
+              grad_of_grad(kernel), grad_of_grad(plain), VJP_TOL)
     return max(errs)
 
 
@@ -651,17 +693,44 @@ def profile_step(step, step_ms: float, steps: int = 5) -> dict:
     }
 
 
-def time_cold(fn, flush, reps: int = 30) -> float:
-    """Median device time (ms) of ``fn`` with the L2 cache flushed before
-    each call. A spin kernel after the flush keeps the device busy while the
-    host enqueues the timed call, so the events see device time only, not
-    the wrapper's host overhead."""
+# L2 states before a timed kernel call (time_device).
+L2_STATES = ("clean", "dirty", "warm")
+
+
+def flush_l2(flush, state: str) -> None:
+    """Put the L2 cache (50 MB on an H100) in ``state`` before a timed call:
+
+    - ``clean``: read the 256 MB ``flush`` buffer into 4,096 row sums (16
+      KB; a reduction by rows needs no zeroed scratch, so the flush adds no
+      memset to the profiles). The lines the previous call left (its dirty
+      outputs too, written back here, untimed) are evicted, and what stays
+      is clean, so the timed call reads its inputs from device memory and
+      pays for its own bytes only;
+    - ``dirty``: ``flush.zero_()``, the protocol of the earlier slices. It
+      leaves ~50 MB of dirty lines, which the timed call writes back as it
+      reads, so a streaming kernel pays up to twice its bytes;
+    - ``warm``: nothing. The previous call of the same function has just
+      touched the inputs, which stay in L2 as far as they fit, as when a
+      producer kernel has just written them."""
+    if state == "clean":
+        flush.view(4096, -1).sum(1)
+    elif state == "dirty":
+        flush.zero_()
+    elif state != "warm":
+        raise ValueError(f"unknown L2 state {state!r}")
+
+
+def time_device(fn, flush, state: str = "clean", reps: int = 30) -> float:
+    """Median device time (ms) of ``fn`` with the L2 put in ``state``
+    (:func:`flush_l2`) before each call. A spin kernel after the flush keeps
+    the device busy while the host enqueues the timed call, so the events
+    see device time only, not the wrapper's host overhead."""
     import torch
 
     fn()
     pairs = []
     for _ in range(reps):
-        flush.zero_()
+        flush_l2(flush, state)
         torch.cuda._sleep(2_000_000)  # ~1 ms of clock cycles
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -672,11 +741,18 @@ def time_cold(fn, flush, reps: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def l2_times(fn, flush) -> dict:
+    """The kernel's time under each L2 state: ``ms`` (clean flush),
+    ``cold_dirty_us`` and ``warm_us``."""
+    ms = {state: time_device(fn, flush, state) for state in L2_STATES}
+    return {"ms": ms["clean"], "cold_dirty_us": ms["dirty"] * 1e3, "warm_us": ms["warm"] * 1e3}
+
+
 def kernel_parts(fn, flush, calls: int = 10) -> dict[str, float]:
     """Device time (us per call of ``fn``) of each CUDA kernel that ``fn``
-    launches, from torch.profiler over ``calls`` cold-L2 calls: where one
-    wrapper call launches two kernels (the offsets pass and the sum), how
-    the time splits."""
+    launches, from torch.profiler over ``calls`` calls after a clean flush:
+    where one wrapper call launches two kernels (the offsets pass and the
+    sum), how the time splits."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -685,7 +761,7 @@ def kernel_parts(fn, flush, calls: int = 10) -> dict[str, float]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            flush.zero_()
+            flush_l2(flush, "clean")
             torch.cuda._sleep(2_000_000)
             fn()
         torch.cuda.synchronize()
@@ -695,7 +771,34 @@ def kernel_parts(fn, flush, calls: int = 10) -> dict[str, float]:
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
         and "elementwise" not in e.key and "fill" not in e.key.lower()
+        and "reduce_kernel" not in e.key
     }
+
+
+def time_batch_index(gbatch, flush) -> dict:
+    """Device time (us, clean flush, median of 30) of building each part of
+    a batch's kernel index, which ``to_torch`` does once per batch: the
+    offsets of ``edge_src`` and ``triplet_e1`` and the e2 order; and their
+    sum over the parts that each three-body mode builds (``per_mode``)."""
+    from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+    from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+
+    b = gbatch
+    parts = {
+        "edge_src_offsets": lambda: ss.sorted_segment_offsets(b.edge_src, b.num_nodes),
+        "triplet_e1_offsets": lambda: ss.sorted_segment_offsets(b.triplet_e1, b.num_edges),
+        "triplet_e2_order": lambda: ft.triplet_e2_order(b.triplet_e2, b.num_edges),
+    }
+    row = {name: time_device(fn, flush) * 1e3 for name, fn in parts.items()}
+    row["e2_order_kernels_us"] = kernel_parts(parts["triplet_e2_order"], flush)
+    row["per_mode"] = {
+        mode: sum(row[n] for n in index if n in parts)
+        for mode, index in (("factorized", ("edge_src_offsets",)),
+                            ("gather", ("edge_src_offsets", "triplet_e1_offsets")),
+                            ("fused", ("edge_src_offsets", "triplet_e2_order")))
+    }
+    print(json.dumps({"batch_index_us": row}))
+    return row
 
 
 def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
@@ -708,14 +811,16 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     from torch_m3gnet_tpu_torch.ops import windowed_take as wt
 
     src, num_nodes, l_max, n_max = gbatch.edge_src, gbatch.num_nodes, cfg.l_max, cfg.n_max
-    ss_rows = time_sorted_segment(gbatch, card_name)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=src.device).zero_()  # 256 MB > L2
+    ss_rows = time_sorted_segment(gbatch, card_name, flush)
+    time_batch_index(gbatch, flush)
     e, t = gbatch.num_edges, gbatch.num_triplets
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
+    order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
     m, ln, mn = l_max * l_max, l_max * n_max, l_max * l_max * n_max
     sh, gm, a = stage_inputs(num_nodes, e, l_max, n_max, src.device)
     f = 4
     basis, gate, g, data, vals = triplet_inputs(gbatch, ln, f)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=src.device)  # 256 MB > L2
     bw = bandwidth(card_name)
     a_bytes, src_bytes, idx_bytes = 4 * mn * num_nodes, 4 * e, 4 * t
     fs_src = "torch_m3gnet_tpu_torch/csrc/factorized_stage.cu"
@@ -748,13 +853,13 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
             "torch_m3gnet_tpu/ops/pallas_factorized_stage.py:340",
         ),
         "fused_triplet_gate_sum": (
-            ft_src, [lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e)],
+            ft_src, [lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, order)],
             [lambda: ft.fused_triplet_gate_sum_plain(basis, gate, e1, e2, e)], None,
             4 * ln * t + 2 * idx_bytes + 4 * 2 * ln * e, 2 * ln * t,
             "torch_m3gnet_tpu/ops/pallas_fused_triplet.py:381",
         ),
         "backward_pair": (
-            ft_src, [lambda: ft.backward_pair(basis, gate, g, e1, e2, e)],
+            ft_src, [lambda: ft.backward_pair(basis, gate, g, e1, e2, e, order)],
             [lambda: ft.backward_pair_plain(basis, gate, g, e1, e2, e)], None,
             4 * 2 * ln * t + 2 * idx_bytes + 4 * 3 * ln * e, 3 * ln * t,
             "torch_m3gnet_tpu/ops/pallas_fused_triplet.py:513",
@@ -776,13 +881,18 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     }
 
     def mean_ms(fns):
-        return None if fns is None else statistics.mean(time_cold(fn, flush) for fn in fns)
+        return None if fns is None else statistics.mean(time_device(fn, flush) for fn in fns)
+
+    def mean_l2(fns):
+        times = [l2_times(fn, flush) for fn in fns]
+        return {k: statistics.mean(x[k] for x in times) for k in times[0]}
 
     rows = [dict(ss_rows[0], launches=launches["sorted_segment_sum"],
                  max_abs_err=errs["sorted_segment_sum"])]
     with torch.no_grad():
         for name, (source, kernel, plain, library, nbytes, flops, replaces) in specs.items():
-            ms, plain_ms, library_ms = mean_ms(kernel), mean_ms(plain), mean_ms(library)
+            l2 = mean_l2(kernel)
+            plain_ms, library_ms = mean_ms(plain), mean_ms(library)
             bytes_ms = nbytes / bw * 1e3
             ops_ms = flops / F32_FLOPS * 1e3
             rows.append({
@@ -792,42 +902,49 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
                 "replaces": replaces,
                 "launches": launches[name],
                 "max_abs_err": errs[name],
-                "ms": ms,
+                "ms": l2["ms"],
                 "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms,
+                "cold_dirty_us": l2["cold_dirty_us"],
+                "warm_us": l2["warm_us"],
                 "bytes": nbytes,
                 "parts_us": kernel_parts(kernel[0], flush),
             })
+            if name == "backward_pair":  # the e2 order's own reads: order, offsets, e1 again
+                rows[-1]["design_bytes"] = nbytes + 4 * (2 * t + e + 1)
             lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
-            print(f"  {name}: {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us{lib}, "
+            print(f"  {name}: {l2['ms'] * 1e3:.2f} us clean, {l2['cold_dirty_us']:.2f} dirty, "
+                  f"{l2['warm_us']:.2f} warm (plain {plain_ms * 1e3:.1f} us{lib}, "
                   f"bound {max(bytes_ms, ops_ms) * 1e3:.2f} us for {nbytes / 1e6:.2f} MB; "
                   f"kernels {rows[-1]['parts_us']})")
     return rows
 
 
-def time_sorted_segment(gbatch, card_name) -> list[dict]:
-    """B8 at each of its four shapes on the path: kernel, plain version and
-    ``index_add_`` (cold L2, median of 30) beside the bytes bound. Prints
-    the rows as one line; the first (the node aggregation, the largest and
-    the one each block runs) goes into the ``kernels`` line."""
+def time_sorted_segment(gbatch, card_name, flush) -> list[dict]:
+    """B8 at each of its four shapes on the path: kernel (under the three L2
+    states), plain version and ``index_add_`` (clean flush, median of 30)
+    beside the bytes bound. Prints the rows as one line; the first (the
+    node aggregation, the largest and the one each block runs) goes into
+    the ``kernels`` line."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
 
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=gbatch.edge_src.device)
     bw = bandwidth(card_name)
     rows = []
     with torch.no_grad():
-        for i, (label, f, seg, nseg) in enumerate(sorted_sum_cases(gbatch)):
+        for i, (label, f, seg, nseg, off) in enumerate(sorted_sum_cases(gbatch)):
             x = seeded((f, seg.shape[0]), seg.device, 10 + i)
             m = seg.shape[0]
-            nbytes = 4 * f * m + 4 * m + 4 * f * nseg
+            # data and output once, and the index the call reads: the
+            # batch's S + 1 offsets where given, else the M sorted ids
+            nbytes = 4 * f * m + (4 * (nseg + 1) if off is not None else 4 * m) + 4 * f * nseg
             bytes_ms, ops_ms = nbytes / bw * 1e3, f * m / F32_FLOPS * 1e3
-            ms = time_cold(lambda: ss.sorted_segment_sum_fm(x, seg, nseg), flush)
-            plain_ms = time_cold(lambda: ss.sorted_segment_sum_fm_plain(x, seg, nseg), flush)
-            library_ms = time_cold(
+            l2 = l2_times(lambda: ss.sorted_segment_sum_fm(x, seg, nseg, off), flush)
+            plain_ms = time_device(lambda: ss.sorted_segment_sum_fm_plain(x, seg, nseg), flush)
+            library_ms = time_device(
                 lambda: torch.zeros((f, nseg), device=x.device).index_add_(1, seg, x), flush)
             rows.append({
                 "name": "sorted_segment_sum",
@@ -836,16 +953,21 @@ def time_sorted_segment(gbatch, card_name) -> list[dict]:
                 "replaces": "torch_m3gnet_tpu/ops/pallas_segment.py:252",
                 "also_replaces": "torch_m3gnet_tpu/ops/pallas_segment.py:129",
                 "shape": {"call": label, "F": f, "M": m, "S": nseg},
-                "ms": ms,
+                "ms": l2["ms"],
                 "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms,
+                "cold_dirty_us": l2["cold_dirty_us"],
+                "warm_us": l2["warm_us"],
                 "bytes": nbytes,
-                "parts_us": kernel_parts(lambda: ss.sorted_segment_sum_fm(x, seg, nseg), flush),
+                "offsets": "the batch's" if off is not None else "the kernel's own pass",
+                "parts_us": kernel_parts(lambda: ss.sorted_segment_sum_fm(x, seg, nseg, off),
+                                         flush),
             })
-            print(f"  sorted_segment_sum {label}: {ms * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} "
-                  f"us, index_add_ {library_ms * 1e3:.1f} us, bound "
+            print(f"  sorted_segment_sum {label}: {l2['ms'] * 1e3:.2f} us clean, "
+                  f"{l2['cold_dirty_us']:.2f} dirty, {l2['warm_us']:.2f} warm (plain "
+                  f"{plain_ms * 1e3:.1f} us, index_add_ {library_ms * 1e3:.1f} us, bound "
                   f"{max(bytes_ms, ops_ms) * 1e3:.2f} us for {nbytes / 1e6:.2f} MB)")
     print(json.dumps({"sorted_segment_sum_shapes": rows}))
     return rows
@@ -900,8 +1022,10 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".so.log").read_text().splitlines()
     for i, line in enumerate(log):  # ptxas report of the kernels the default model runs
-        if "Compiling entry function" in line and any(
-            k in line for k in ("Li3ELi3E", "Li9E", "windowed", "backward_pair", "segment")
+        if "Compiling entry function" in line and (
+            any(k in line for k in ("Li3ELi3E", "Li9E", "windowed", "segment_offsets",
+                                    "segment_sum_block"))
+            or ("segment_sum_tiled" in line and any(k in line for k in ("Li1E", "Li4E")))
         ):
             print("\n".join("  " + x.strip() for x in log[i : i + 4]))
 
@@ -951,6 +1075,12 @@ def main() -> int:
         trainer = trainers[mode]
         step_line(label, lambda: trainer.train_step(card_train), gbatch, name, smi, real,
                   reps=20, warmup=3, mode=mode, eval_ms=eval_ms[eval_label])
+    # the same steps from the host batch: each step copies it to the card,
+    # checks its indices and builds the kernel index its mode reads
+    for label, mode in (("train_host", "factorized"), ("train_fused_host", "fused")):
+        trainer = trainers[mode]
+        step_line(label, lambda: trainer.train_step(host_train), gbatch, name, smi, real,
+                  reps=10, warmup=2, mode=mode)
     # each kernel's launches from the evaluation of its own mode
     counts = {k: launches[k] or launches_f[k] for k in launches}
     rows = time_kernels(gbatch, cfg, name, counts, errs)

@@ -13,6 +13,9 @@ import torch
 
 from torch_m3gnet_tpu.data.graph import pack_structures as jax_pack
 from torch_m3gnet_tpu_torch.data import GraphBatch, Structure, pack_structures, to_torch
+from torch_m3gnet_tpu_torch.data.graph import BATCH_INDEX_FIELDS
+
+
 
 
 def _port_structure(s):
@@ -34,7 +37,11 @@ def test_pack_structures_matches_jax(request, names, pad):
     want = jax_pack(structs, 5.0, 4.0, **pad)
     got = pack_structures([_port_structure(s) for s in structs], 5.0, 4.0, **pad)
     for f in dataclasses.fields(GraphBatch):
-        g, w = getattr(got, f.name), getattr(want, f.name)
+        g = getattr(got, f.name)
+        if f.name in BATCH_INDEX_FIELDS:  # the port's own, built by to_torch
+            assert g is None, f.name
+            continue
+        w = getattr(want, f.name)
         if w is None or isinstance(w, int):
             assert g == w, f.name
             continue
@@ -101,3 +108,124 @@ def test_to_torch_checks_node_graph(al_fcc, na_bcc, bad, match):
     node_graph = {"reverse": ng[::-1].copy(), "past-end": ng + 3, "negative": ng - 1}[bad]
     with pytest.raises(ValueError, match=match):
         to_torch(batch.replace(node_graph=node_graph), "cpu")
+
+
+def _assert_e2_order(order, offsets, e2, num_edges):
+    """order is np.argsort(e2, kind="stable") and offsets the left
+    searchsorted of every edge id in the sorted e2."""
+    e2 = np.asarray(e2)
+    want = np.argsort(e2, kind="stable")
+    assert order.dtype == torch.int32 and offsets.dtype == torch.int32
+    assert order.is_contiguous() and offsets.is_contiguous()
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(offsets.numpy(),
+                                  np.searchsorted(e2[want], np.arange(num_edges + 1)))
+
+
+@pytest.mark.parametrize(
+    "names, pad",
+    [
+        (("al_fcc",), {}),
+        (("na_bcc",), {}),
+        (("tio2_rutile",), {}),
+        (("al_fcc", "na_bcc", "tio2_rutile"), dict(max_graphs=4, pad_multiple=64)),
+    ],
+    ids=["al", "na", "tio2", "all-padded"],
+)
+def test_to_torch_builds_the_e2_order(request, names, pad):
+    """The e2 order that the fused stage's backward kernel sums dG by:
+    to_torch builds it once per batch, the stable argsort of triplet_e2 and
+    the run offsets of each edge. Padded triplets point e2 at edge 0, so
+    edge 0's run ends with them, in ascending t. The run offsets of the
+    sorted edge_src and triplet_e1 come with it (the last node and the last
+    edge own the padded tails)."""
+    structs = [_port_structure(request.getfixturevalue(n)) for n in names]
+    batch = pack_structures(structs, 5.0, 4.0, **pad)
+    assert all(getattr(batch, name) is None for name in BATCH_INDEX_FIELDS)
+    t = to_torch(batch, "cpu")
+    for name, seg, s in (("edge_src_offsets", batch.edge_src, batch.num_nodes),
+                         ("triplet_e1_offsets", batch.triplet_e1, batch.num_edges)):
+        off = getattr(t, name)
+        assert off.dtype == torch.int32 and off.is_contiguous(), name
+        np.testing.assert_array_equal(off.numpy(), np.searchsorted(seg, np.arange(s + 1)))
+        assert off[-1] == seg.size and off[-1] - off[-2] > 0, name
+    _assert_e2_order(t.triplet_e2_order, t.triplet_e2_offsets, batch.triplet_e2, batch.num_edges)
+    n_pad = int((~batch.triplet_mask).sum())
+    assert n_pad > 0
+    off = t.triplet_e2_offsets.numpy()
+    run0 = t.triplet_e2_order.numpy()[off[0]:off[1]]
+    assert off[0] == 0 and run0.size >= n_pad
+    np.testing.assert_array_equal(run0[-n_pad:], np.arange(batch.num_triplets - n_pad,
+                                                           batch.num_triplets))
+    assert np.all(np.diff(run0) > 0)
+    # an already converted batch keeps its order; a host batch with a new
+    # e2 gets a new one
+    assert to_torch(t, "cpu").triplet_e2_order is t.triplet_e2_order
+    flipped = batch.replace(triplet_e2=batch.triplet_e2[::-1].copy())
+    f = to_torch(flipped, "cpu")
+    _assert_e2_order(f.triplet_e2_order, f.triplet_e2_offsets, flipped.triplet_e2,
+                     batch.num_edges)
+
+
+def test_to_torch_builds_the_e2_order_of_a_tensor_batch(al_fcc):
+    """A tensor batch without an order gets one built on its device, from
+    its own triplet_e2; edges that no triplet points at have empty runs."""
+    batch = to_torch(pack_structures([_port_structure(al_fcc)], 5.0, 4.0), "cpu")
+    rng = np.random.default_rng(7)
+    e2 = rng.integers(0, batch.num_edges // 3, batch.num_triplets).astype(np.int32)
+    bare = batch.replace(triplet_e2=torch.as_tensor(e2))
+    assert all(getattr(bare, name) is None for name in BATCH_INDEX_FIELDS)
+    t = to_torch(bare, "cpu")
+    _assert_e2_order(t.triplet_e2_order, t.triplet_e2_offsets, e2, batch.num_edges)
+    assert int(t.triplet_e2_offsets[-1]) == batch.num_triplets
+    assert int(t.triplet_e2_offsets[batch.num_edges // 3]) == batch.num_triplets
+
+
+@pytest.mark.parametrize("field", ["edge_src", "triplet_e1", "triplet_e2", "positions"])
+def test_replace_drops_the_index_built_from_a_replaced_field(al_fcc, field):
+    """Replacing edge_src, triplet_e1, triplet_e2, or the positions by ones
+    of another node count, drops the whole kernel index of a converted
+    batch, so to_torch builds it anew from the new fields; replacing the
+    positions by the same count, or a target, keeps it."""
+    batch = to_torch(pack_structures([_port_structure(al_fcc)], 5.0, 4.0), "cpu")
+    assert all(getattr(batch, name) is not None for name in BATCH_INDEX_FIELDS)
+    for same in (dict(positions=batch.positions * 2), dict(energy=torch.ones(1))):
+        kept = batch.replace(**same)
+        assert all(getattr(kept, n) is getattr(batch, n) for n in BATCH_INDEX_FIELDS)
+    new = getattr(batch, field).clone()
+    if field == "triplet_e2":
+        new = new.flip(0)
+    elif field == "positions":
+        new = torch.cat([new, new[:1]])
+    else:  # still sorted: the first run grows by one entry
+        new[1] = new[0]
+    replaced = batch.replace(**{field: new})
+    assert all(getattr(replaced, name) is None for name in BATCH_INDEX_FIELDS)
+    kept_given = batch.replace(**{field: new, "edge_src_offsets": batch.edge_src_offsets})
+    assert kept_given.edge_src_offsets is batch.edge_src_offsets
+    t = to_torch(replaced, "cpu")
+    for name, seg, s in (("edge_src_offsets", t.edge_src, t.num_nodes),
+                         ("triplet_e1_offsets", t.triplet_e1, t.num_edges)):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.searchsorted(seg.numpy(), np.arange(s + 1)))
+    _assert_e2_order(t.triplet_e2_order, t.triplet_e2_offsets, t.triplet_e2, t.num_edges)
+
+
+@pytest.mark.parametrize("index", [(), ("edge_src_offsets",), ("triplet_e1_offsets",),
+                                   ("triplet_e2_order", "triplet_e2_offsets")],
+                         ids=["none", "src", "e1", "e2-order"])
+def test_to_torch_builds_only_the_named_index(al_fcc, index):
+    """to_torch builds the named parts of the index and no other, for a
+    host batch and for a tensor batch that lacks them; a tensor batch keeps
+    what it carries."""
+    host = pack_structures([_port_structure(al_fcc)], 5.0, 4.0)
+    t = to_torch(host, "cpu", index=index)
+    for name in BATCH_INDEX_FIELDS:
+        assert (getattr(t, name) is not None) == (name in index), name
+    full = to_torch(t, "cpu")
+    assert all(getattr(full, name) is not None for name in BATCH_INDEX_FIELDS)
+    for name in index:
+        assert getattr(full, name) is getattr(t, name)
+    assert to_torch(full, "cpu", index=index).triplet_e2_order is full.triplet_e2_order
+    with pytest.raises(ValueError, match="unknown batch index"):
+        to_torch(host, "cpu", index=("edge_dst_offsets",))

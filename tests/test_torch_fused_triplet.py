@@ -95,7 +95,7 @@ def test_forward_and_vjp_match_pallas(interpret, case):
     ref = np.asarray(reference_triplet_gate_sum(*jargs, e))
     tb, tg = _t(basis, gate, grad=True)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e)
+    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, ft.triplet_e2_order(te2, e))
     plain = ft.fused_triplet_gate_sum_plain(tb, tg, te1, te2, e)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     for x in (got, plain):
@@ -126,7 +126,7 @@ def test_forward_sorted_index_cases(case, ln):
     basis, gate, e1, e2, e = chip_smoke.triplet_case_inputs(case, ln)
     want = np.asarray(reference_triplet_gate_sum(*map(jnp.asarray, (basis, gate, e1, e2)), e))
     tb, tg, te1, te2 = _t(basis, gate, e1, e2)
-    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e)
+    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, ft.triplet_e2_order(te2, e))
     plain = ft.fused_triplet_gate_sum_plain(tb, tg, te1, te2, e)
     for x in (got, plain):
         assert tuple(x.shape) == (ln, e) and x.dtype == torch.float32
@@ -135,18 +135,62 @@ def test_forward_sorted_index_cases(case, ln):
     assert empty.size and not got[:, empty].any()
 
 
-@pytest.mark.parametrize("case", ["real", "padding-tail"])
-def test_backward_pair_matches_pallas(interpret, case):
-    basis, gate, g, e1, e2, e = _inputs(case, seed=1)
+def _d_gate_by_order(basis, g, e1, order, off2):
+    """dG as the backward kernel sums it: for edge e, the products
+    g[:, e1[t]] * basis[:, t] over t = order[off2[e]:off2[e + 1]], in that
+    order (here an f64 cumulative sum read at the run ends)."""
+    o = order.long()
+    prod = (g.double()[:, e1.long()[o]] * basis.double()[:, o])
+    cs = torch.nn.functional.pad(torch.cumsum(prod, 1), (1, 0))
+    off = off2.long()
+    return cs[:, off[1:]] - cs[:, off[:-1]]
+
+
+@pytest.mark.parametrize("case, ln", [
+    pytest.param(c, ln, id=c if ln == 9 else f"{c}-ln{ln}")
+    for ln in (9, 1, 16) for c in ("real", "padding-tail", "synthetic")
+])
+def test_backward_pair_matches_pallas(interpret, case, ln):
+    """backward_pair with the batch's e2 order (Function and plain version)
+    against the Pallas backward kernel; dG also as the CUDA kernel sums it,
+    each edge's run of the e2 order, which holds the order and its offsets
+    (the padding tail puts 700 triplets on edge 0). TOL as above."""
+    basis, gate, g, e1, e2, e = _inputs(case, ln=ln, seed=1)
     want = jpair(*map(jnp.asarray, (basis, gate, g, e1, e2)), e)
     tb, tg, tgg = _t(basis, gate, g)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    got = ft.backward_pair(tb, tg, tgg, te1, te2, e)
+    order = ft.triplet_e2_order(te2, e)
+    got = ft.backward_pair(tb, tg, tgg, te1, te2, e, order)
     plain = ft.backward_pair_plain(tb, tg, tgg, te1, te2, e)
     for x, p, y in zip(got, plain, want):
         assert x.dtype == torch.float32 and tuple(x.shape) == y.shape
         np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
         np.testing.assert_allclose(p.numpy(), np.asarray(y), **TOL)
+    np.testing.assert_allclose(_d_gate_by_order(tb, tgg, te1, *order).numpy(),
+                               np.asarray(want[1]), **TOL)
+
+
+@pytest.mark.parametrize("ln", [1, 9, 16])
+@pytest.mark.parametrize("case", chip_smoke.SORTED_CASES)
+def test_backward_pair_sorted_index_cases(case, ln):
+    """backward_pair on the sorted e1 and uniform random e2 of every case
+    that chip_smoke.py holds the kernel to (one edge owning every triplet, a
+    20,480-triplet run, runs across chunk boundaries, a ragged edge count,
+    long stretches of empty edges): dyadic data, so every f32 sum is exact
+    in any order, and the Function, the plain version and the sum by the
+    e2 order agree exactly; edges that no e2 points at get zeros."""
+    basis, gate, e1, e2, e = chip_smoke.triplet_case_inputs(case, ln)
+    g = chip_smoke.dyadic(np.random.default_rng(60 + ln), gate.shape)
+    tb, tg, tgg, te1, te2 = _t(basis, gate, g, e1, e2)
+    order = ft.triplet_e2_order(te2, e)
+    d_basis, d_gate = ft.backward_pair(tb, tg, tgg, te1, te2, e, order)
+    want_b, want_g = ft.backward_pair_plain(tb, tg, tgg, te1, te2, e)
+    assert tuple(d_basis.shape) == (ln, e1.shape[0]) and tuple(d_gate.shape) == (ln, e)
+    assert torch.equal(d_basis, want_b) and torch.equal(d_gate, want_g)
+    by_order = _d_gate_by_order(tb, tgg, te1, *order)
+    assert torch.equal(by_order, want_g.double())
+    unowned = np.setdiff1d(np.arange(e), e2)
+    assert not d_gate[:, unowned].any()
 
 
 def test_grad_of_grad_matches_jax(interpret):
@@ -168,7 +212,8 @@ def test_grad_of_grad_matches_jax(interpret):
     want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(basis), jnp.asarray(gate))
     tb, tg = _t(basis, gate, grad=True)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    out = torch.sin(ft.fused_triplet_gate_sum(tb, tg, te1, te2, e)).sum()
+    order = ft.triplet_e2_order(te2, e)
+    out = torch.sin(ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, order)).sum()
     db, dg = torch.autograd.grad(out, (tb, tg), create_graph=True)
     loss = (db * db * torch.as_tensor(wb)).sum() + (dg * torch.as_tensor(wg)).sum()
     got = torch.autograd.grad(loss, (tb, tg))
@@ -180,16 +225,19 @@ def test_grad_of_grad_matches_jax(interpret):
 def test_functions_close_under_differentiation(op):
     """gradcheck and gradgradcheck at f64: each Function's backward is built
     from the two Functions, so it is itself differentiable, as training's
-    gradient of a gradient needs."""
+    gradient of a gradient needs; every backward carries the e2 order on."""
     e1 = torch.tensor([0, 0, 0, 2, 2, 3, 5, 5], dtype=torch.int32)  # sorted; 1 and 4 own none
     e2 = torch.tensor([2, 3, 5, 0, 3, 5, 0, 2], dtype=torch.int32)
+    order = ft.triplet_e2_order(e2, 6)
     rng = np.random.default_rng(4)
     basis, gate, g = (torch.tensor(rng.standard_normal(s), requires_grad=True)
                       for s in ((3, 8), (3, 6), (3, 6)))
     if op == "fused_triplet_gate_sum":
-        fn, args = (lambda b, G: ft.fused_triplet_gate_sum(b, G, e1, e2, 6)), (basis, gate)
+        fn = lambda b, G: ft.fused_triplet_gate_sum(b, G, e1, e2, 6, order)  # noqa: E731
+        args = (basis, gate)
     else:
-        fn, args = (lambda b, G, c: ft.backward_pair(b, G, c, e1, e2, 6)), (basis, gate, g)
+        fn = lambda b, G, c: ft.backward_pair(b, G, c, e1, e2, 6, order)  # noqa: E731
+        args = (basis, gate, g)
     assert torch.autograd.gradcheck(fn, args)
     assert torch.autograd.gradgradcheck(fn, args)
 
@@ -199,11 +247,17 @@ def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
     e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
     e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
     b, gate = torch.ones(2, 3), torch.ones(2, 3)
+    order, offsets = ft.triplet_e2_order(e2, 3)
     with pytest.raises(ValueError, match="gate_e has shape"):
-        ft.fused_triplet_gate_sum(b, gate[:, :2], e1, e2, 3)
+        ft.fused_triplet_gate_sum(b, gate[:, :2], e1, e2, 3, (order, offsets))
     with pytest.raises(ValueError, match="basis has shape"):
-        ft.backward_pair(b[:, :2], gate, gate, e1, e2, 3)
+        ft.backward_pair(b[:, :2], gate, gate, e1, e2, 3, (order, offsets))
     with pytest.raises(ValueError, match="e1 and e2"):
-        ft.fused_triplet_gate_sum(b, gate, e1, e2[:2], 3)
-    ft.backward_pair(b, gate, ft.fused_triplet_gate_sum(b, gate, e1, e2, 3), e1, e2, 3)
+        ft.fused_triplet_gate_sum(b, gate, e1, e2[:2], 3, (order, offsets))
+    with pytest.raises(ValueError, match="the e2 order must be"):
+        ft.backward_pair(b, gate, gate, e1, e2, 3, (order[:2], offsets))
+    with pytest.raises(ValueError, match="the e2 order must be"):
+        ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets[:3]))
+    out = ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets))
+    ft.backward_pair(b, gate, out, e1, e2, 3, (order, offsets))
     assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}

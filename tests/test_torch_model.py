@@ -206,6 +206,41 @@ def test_triplet_modes_resolve_and_evaluate(al_fcc, kw, mode):
         assert torch.isfinite(getattr(out, name)).all(), name
 
 
+@pytest.mark.parametrize("mode", ["factorized", "gather", "fused"])
+def test_each_mode_builds_only_its_batch_index(al_fcc, monkeypatch, mode):
+    """A host batch through the potential gets only the parts of the
+    kernel index that its mode reads: the e2 order (a device sort of every
+    triplet) in the fused mode alone, in one build for the whole forward
+    and backward; the triplet_e1 offsets in the gather mode alone."""
+    from torch_m3gnet_tpu_torch.data import graph
+    from torch_m3gnet_tpu_torch.ops import fused_triplet, sorted_segment
+
+    calls = {"e2_order": 0, "offsets": []}
+    e2_order, offsets = fused_triplet.triplet_e2_order, sorted_segment.sorted_segment_offsets
+
+    def count_e2_order(*args):
+        calls["e2_order"] += 1
+        return e2_order(*args)
+
+    def count_offsets(seg, n):
+        calls["offsets"].append(n)
+        return offsets(seg, n)
+
+    monkeypatch.setattr(fused_triplet, "triplet_e2_order", count_e2_order)
+    monkeypatch.setattr(sorted_segment, "sorted_segment_offsets", count_offsets)
+    pot = build_model(M3GNetConfig(threebody_mode=mode, **SMALL), device="cpu")
+    batch = jax_pack([_perturbed(al_fcc, 0)], 5.0, 4.0, pad_multiple=64)
+    pot(batch).forces.sum()
+    want = {"factorized": ("edge_src_offsets",),
+            "gather": ("edge_src_offsets", "triplet_e1_offsets"),
+            "fused": ("edge_src_offsets", "triplet_e2_order", "triplet_e2_offsets")}[mode]
+    assert pot.model.batch_index == want
+    assert set(want) <= set(graph.BATCH_INDEX_FIELDS)
+    assert calls["e2_order"] == (mode == "fused")
+    n, e = batch.num_nodes, batch.num_edges
+    assert calls["offsets"] == [n] + ([e] if mode == "gather" else [])
+
+
 def test_auto_mode_resolves_to_factorized():
     assert build_model(M3GNetConfig(**SMALL), device="cpu").model.threebody_mode == "factorized"
     for mode in ("gather", "fused"):
@@ -215,7 +250,8 @@ def test_auto_mode_resolves_to_factorized():
         build_model(M3GNetConfig(threebody_mode="pairwise"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16")], ids=["bf16"])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(remat_triplets=True)],
+                         ids=["bf16", "remat"])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="later slice"):
         build_model(M3GNetConfig(**kw), device="cpu")

@@ -103,18 +103,23 @@ def test_grad_of_grad_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want).T, **TOL)
 
 
-@pytest.mark.parametrize("op", ["sum", "take"])
-def test_functions_close_under_differentiation(op):
+@pytest.mark.parametrize("op, with_offsets", [
+    pytest.param(op, w, id=f"{op}-offsets" if w else op)
+    for w in (False, True) for op in ("sum", "take")
+])
+def test_functions_close_under_differentiation(op, with_offsets):
     """gradcheck and gradgradcheck at f64, with empty segments (ids 0 and 3
-    have no rows) and a run of four."""
+    have no rows) and a run of four; with the offsets passed in, every
+    backward carries them on."""
     seg = torch.tensor([1, 1, 2, 4, 4, 4, 4, 5], dtype=torch.int32)
+    off = ss.sorted_segment_offsets(seg, 7) if with_offsets else None
     rng = np.random.default_rng(4)
     if op == "sum":
         x = torch.tensor(rng.standard_normal((3, 8)), requires_grad=True)
-        fn = lambda d: ss.sorted_segment_sum_fm(d, seg, 7)  # noqa: E731
+        fn = lambda d: ss.sorted_segment_sum_fm(d, seg, 7, off)  # noqa: E731
     else:
         x = torch.tensor(rng.standard_normal((3, 7)), requires_grad=True)
-        fn = lambda d: ss.sorted_take_fm(d, seg)  # noqa: E731
+        fn = lambda d: ss.sorted_take_fm(d, seg, off)  # noqa: E731
     assert fn(x).dtype == torch.float64
     assert torch.autograd.gradcheck(fn, (x,))
     assert torch.autograd.gradgradcheck(fn, (x,))
@@ -129,7 +134,23 @@ def test_wrapper_rejects_wrong_shapes_and_launches_nothing_on_cpu():
         ss.sorted_segment_sum_fm(torch.zeros(2, 4), seg, 3)
     with pytest.raises(ValueError, match="data has shape"):
         ss.sorted_segment_sum_fm(torch.zeros(3), seg, 3)
+    with pytest.raises(ValueError, match="offsets has shape"):
+        ss.sorted_segment_sum_fm(torch.zeros(2, 3), seg, 3, torch.zeros(3, dtype=torch.int32))
     out = ss.sorted_segment_sum_fm(torch.ones(2, 3), seg, 3)
     assert out.tolist() == [[2.0, 0.0, 1.0], [2.0, 0.0, 1.0]]
     assert ss.LAUNCHES == {"sorted_segment_sum": 0}
 
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_offsets_are_the_kernel_offsets_pass(case):
+    """sorted_segment_offsets, which the batch carries for edge_src and
+    triplet_e1 so that the kernel skips its offsets pass, is what that pass
+    writes: offsets[s] = the first m with seg[m] >= s (np.searchsorted),
+    offsets[S] = M, each segment's rows [offsets[s], offsets[s + 1])."""
+    seg, s = _ids(case, np.random.default_rng(3))
+    off = ss.sorted_segment_offsets(torch.as_tensor(seg), s)
+    assert off.dtype == torch.int32 and tuple(off.shape) == (s + 1,)
+    np.testing.assert_array_equal(off.numpy(), np.searchsorted(seg, np.arange(s + 1)))
+    counts = np.bincount(seg, minlength=s)
+    np.testing.assert_array_equal(np.diff(off.numpy()), counts)

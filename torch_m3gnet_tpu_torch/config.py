@@ -8,6 +8,10 @@ and ignored by this port: ``fused_factorized``, ``pallas_segment``,
 kept; of ``pallas_segment`` only the check of its value. The port always
 computes feature-major with full-f32 matmuls, and its sorted segment sums
 always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
+Two fields are not ported yet, and ``build_model`` raises
+``NotImplementedError`` for anything but their defaults:
+``compute_dtype`` (``"float32"`` only) and ``remat_triplets`` (``False``
+only).
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ class M3GNetConfig:
     compute_dtype: str = "float32"
     # Ignored by the port (TPU matmul precision knob).
     matmul_precision: str = "default"
-    # Rematerialize the three-body stage in backward; not yet in the port.
+    # Rematerialize the three-body stage in backward; not yet in the port:
+    # True raises in build_model.
     remat_triplets: bool = False
     # Ignored by the port (TPU GatedMLP fusion knob; math is unchanged).
     fuse_gated_second: bool = True

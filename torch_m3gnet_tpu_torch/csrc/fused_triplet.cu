@@ -11,8 +11,11 @@
 // basis and d_basis are (LN, T), gate, g, out and d_gate (LN, E): f32,
 // row-major, entity axis contiguous. e1 (T,) is int32, sorted ascending, in
 // [0, E); e2 (T,) is int32 in [0, E), unsorted. Padded triplets carry zero
-// basis and point e1 at the last (padded) edge, which therefore owns a long
-// run of them.
+// basis, point e1 at the last (padded) edge, which therefore owns a long
+// run of them, and point e2 at edge 0. The backward also takes the e2
+// order of the batch (built once per batch, ops/fused_triplet.py
+// triplet_e2_order): order (T,) int32, the stable permutation that sorts
+// e2, and off2 (E + 1,) int32, edge e's run [off2[e], off2[e + 1]) of it.
 //
 // What bounds them: memory. The forward does 2*LN*T flops against
 // (LN*T + 2*T + 2*LN*E) * 4 bytes, the backward 3*LN*T flops against
@@ -23,9 +26,9 @@
 // What the design does about it: the T-scale message basis * gate[e2] never
 // touches device memory, and every T-scale array is read or written with
 // coalesced accesses along t. The gate[:, e2[t]] reads, and in the backward
-// the g[:, e1[t]] reads and the d_gate adds, fall in a short window of
-// columns (both edges of a triplet share a source node and edges are sorted
-// by source), so L1/L2 serve them.
+// the g[:, e1[t]] reads and the gathers by the e2 order, fall in a short
+// window of columns (both edges of a triplet share a source node and edges
+// are sorted by source), so L1/L2 serve them.
 //   - forward: the sorted-owner sum of B8 with the gate product fused into
 //     the staging. The offsets pass of segment_offsets.cuh turns the sorted
 //     e1 into each edge's triplet range [off[e], off[e+1]), so nothing
@@ -43,16 +46,45 @@
 //     with no triplet costs one comparison of two offsets; the padded
 //     edge's long run is just more chunks, and its block (the blocks run
 //     from the last edge down) starts first.
-//   - backward: one thread per triplet. d_basis is a streaming write; d_gate
-//     scatters by the unsorted e2, with f32 atomicAdd into an output the
-//     entry point zeroes first (cudaMemsetAsync on the same stream). Its
-//     last bits change from run to run.
+//   - backward: one launch, two block ranges with no dependency between
+//     them, so the gather-bound d_gate blocks and the streaming d_basis
+//     blocks share the card:
+//     * d_gate, blocks [0, ceil(E / 256)): the same sorted-owner sum as the
+//       forward, turned to e2. A block owns kPairEdges = 256 consecutive
+//       edges, one thread each; their triplets are one contiguous span of
+//       the e2 order, whose ends the block reads from off2. It streams the
+//       span in chunks of kPairStage / (LN + 1) triplets: the order is
+//       copied to shared memory with cp.async, then each staged triplet t
+//       gets its LN products g[:, e1[t]] * basis[:, t] in shared memory
+//       (four staged triplets a thread with their loads in flight
+//       together), and each thread sums its edge's run of the chunk in
+//       order into LN partials added to LN sums carried across chunks, and
+//       writes its LN outputs once. No memset and no atomics: every edge
+//       has one owner and a fixed order, so two calls give the same bits,
+//       and an edge with no triplet gets zeros. On the bench batch the
+//       triplets of a span lie within a few nodes' triplet ranges (both
+//       edges of a triplet share its source node), so the gathers of
+//       basis, e1 and g stay in a window that L1/L2 serve. The padded
+//       triplets' run on edge 0 is one thread's longer loop in block 0,
+//       which starts first.
+//     * d_basis, the blocks after them: a streaming write in t order, four
+//       consecutive triplets a thread with 16-byte loads of e1 and e2 and
+//       16-byte stores of each d_basis row where T % 4 == 0 and the
+//       pointers are 16-byte aligned (scalar otherwise); consecutive
+//       triplets share e1 (it is sorted), so g[:, e1] comes from L1.
+//     The order adds 4 * (T + E + 1) bytes to the compulsory traffic, and
+//     the d_gate blocks read e1 a second time (by t = order[i]): 9.05 MB
+//     over the 100.5 MB at the bench point. The d_gate blocks take the low
+//     block indices, so they start first (the other way round was slower
+//     on an H100), and the gathers of their products, not the d_basis
+//     stream, set the kernel's time.
 // The TPU version's windowed one-hot MXU gathers and scatters, bf16 hi/lo
 // split, sequential grid and VMEM residency have no counterpart here.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream of the current device, allocates nothing (the forward takes
-// an (E + 1,) int32 scratch for the offsets), and returns cudaGetLastError()
+// an (E + 1,) int32 scratch for the offsets, the backward the batch's e2
+// order), and returns cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported LN).
 
 #include <cuda_runtime.h>
@@ -63,9 +95,11 @@
 
 namespace {
 
-constexpr int kBlock = 256;       // threads per block of the backward
 constexpr int kFwdEdges = 256;    // edges (threads) per block of the forward
 constexpr int kFwdStage = 8192;   // 4-byte words staged per forward chunk (32 KB)
+constexpr int kPairEdges = 256;   // threads per block of the backward; d_gate owners a block
+constexpr int kPairStage = 8192;  // 4-byte words staged per d_gate chunk (32 KB)
+constexpr int kPairTrip = 4;      // triplets per thread of a d_basis block (one 16-byte quad)
 
 // The forward after the offsets pass. Block b owns edges [e0, e0 + kFwdEdges)
 // with e0 counted from the last edge down, so that the block of the padded
@@ -147,20 +181,116 @@ fused_triplet_gate_sum_kernel(const float* __restrict__ basis, const float* __re
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The backward: blocks [0, gate_blocks) own kPairEdges consecutive edges
+// of d_gate each; the blocks after them write d_basis, kPairTrip
+// consecutive triplets a thread.
+template <int LN>
+__global__ void __launch_bounds__(kPairEdges)
 backward_pair_kernel(const float* __restrict__ basis, const float* __restrict__ gate,
                      const float* __restrict__ g, const int* __restrict__ e1,
-                     const int* __restrict__ e2, float* __restrict__ d_basis,
-                     float* __restrict__ d_gate, int rows, int num_edges, int num_trip) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num_trip) return;
-  const int a = __ldg(e1 + t);
-  const int b = __ldg(e2 + t);
-  for (int r = 0; r < rows; ++r) {
-    const size_t row_e = (size_t)r * num_edges, row_t = (size_t)r * num_trip;
-    const float gv = __ldg(g + row_e + a);
-    d_basis[row_t + t] = gv * __ldg(gate + row_e + b);
-    atomicAdd(d_gate + row_e + b, gv * __ldg(basis + row_t + t));
+                     const int* __restrict__ e2, const int* __restrict__ order,
+                     const int* __restrict__ off2, float* __restrict__ d_basis,
+                     float* __restrict__ d_gate, int num_edges, int num_trip, int gate_blocks,
+                     bool vec) {
+  constexpr int kChunk = (kPairStage / (LN + 1)) & ~31;
+  __shared__ __align__(16) int k_s[kChunk];
+  __shared__ __align__(16) float prod[LN * kChunk];
+
+  if ((int)blockIdx.x >= gate_blocks) {
+    // d_basis[:, t] = g[:, e1[t]] * gate[:, e2[t]]
+    const int t0 = ((blockIdx.x - gate_blocks) * kPairEdges + threadIdx.x) * kPairTrip;
+    if (t0 >= num_trip) return;
+    if (vec) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(e1 + t0));
+      const int4 b = __ldg(reinterpret_cast<const int4*>(e2 + t0));
+#pragma unroll
+      for (int r = 0; r < LN; ++r) {
+        const float* gr = g + (size_t)r * num_edges;
+        const float* qr = gate + (size_t)r * num_edges;
+        const float4 v =
+            make_float4(__ldg(gr + a.x) * __ldg(qr + b.x), __ldg(gr + a.y) * __ldg(qr + b.y),
+                        __ldg(gr + a.z) * __ldg(qr + b.z), __ldg(gr + a.w) * __ldg(qr + b.w));
+        *reinterpret_cast<float4*>(d_basis + (size_t)r * num_trip + t0) = v;
+      }
+    } else {
+      for (int t = t0; t < min(t0 + kPairTrip, num_trip); ++t) {
+        const int a = __ldg(e1 + t), b = __ldg(e2 + t);
+#pragma unroll
+        for (int r = 0; r < LN; ++r)
+          d_basis[(size_t)r * num_trip + t] =
+              __ldg(g + (size_t)r * num_edges + a) * __ldg(gate + (size_t)r * num_edges + b);
+      }
+    }
+    return;
+  }
+
+  // d_gate[:, e] = sum over i in [off2[e], off2[e + 1]) of
+  // g[:, e1[t]] * basis[:, t], t = order[i], in i order.
+  const int e0 = blockIdx.x * kPairEdges;
+  const int e = e0 + threadIdx.x;
+  const bool live = e < num_edges;
+  const int span_begin = __ldg(off2 + e0);
+  const int span_end = __ldg(off2 + min(e0 + kPairEdges, num_edges));
+  const int begin = live ? __ldg(off2 + e) : 0;
+  const int end = live ? __ldg(off2 + e + 1) : 0;
+
+  float acc[LN];
+#pragma unroll
+  for (int r = 0; r < LN; ++r) acc[r] = 0.f;
+  // With vec, chunks start on a multiple of 4, so that every staged quad
+  // of the order is one aligned 16-byte copy; the entries outside the span
+  // that this pulls in are never summed.
+  const int first = vec ? (span_begin & ~3) : span_begin;
+  for (int c0 = first; c0 < span_end; c0 += kChunk) {
+    const int c1 = min(c0 + kChunk, span_end);
+    const int width = vec ? (c1 - c0 + 3) & ~3 : c1 - c0;
+    __syncthreads();  // the previous chunk is consumed
+    for (int q = threadIdx.x; 4 * q < width; q += kPairEdges) {
+      if (vec) {
+        cp_async16(k_s + 4 * q, order + c0 + 4 * q);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * q + u < width) cp_async4(k_s + 4 * q + u, order + c0 + 4 * q + u);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i0 = threadIdx.x; i0 < width; i0 += kPairTrip * kPairEdges) {
+      int t[kPairTrip], a[kPairTrip];
+#pragma unroll
+      for (int u = 0; u < kPairTrip; ++u) {
+        const int i = i0 + u * kPairEdges;
+        t[u] = i < width ? k_s[i] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kPairTrip; ++u) a[u] = t[u] >= 0 ? __ldg(e1 + t[u]) : 0;
+#pragma unroll
+      for (int r = 0; r < LN; ++r) {
+#pragma unroll
+        for (int u = 0; u < kPairTrip; ++u)
+          if (t[u] >= 0)
+            prod[r * kChunk + i0 + u * kPairEdges] =
+                __ldg(g + (size_t)r * num_edges + a[u]) * __ldg(basis + (size_t)r * num_trip + t[u]);
+      }
+    }
+    __syncthreads();
+    const int lo = max(begin, c0) - c0, hi = min(end, c1) - c0;
+    if (lo < hi) {
+      float part[LN];
+#pragma unroll
+      for (int r = 0; r < LN; ++r) part[r] = 0.f;
+      for (int i = lo; i < hi; ++i) {
+#pragma unroll
+        for (int r = 0; r < LN; ++r) part[r] += prod[r * kChunk + i];
+      }
+#pragma unroll
+      for (int r = 0; r < LN; ++r) acc[r] += part[r];
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < LN; ++r) d_gate[(size_t)r * num_edges + e] = acc[r];
   }
 }
 
@@ -175,6 +305,22 @@ void launch_fwd(const float* basis, const float* gate, const int* e1, const int*
                                                                  num_edges, num_trip, vec);
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int LN>
+void launch_pair(const float* basis, const float* gate, const float* g, const int* e1,
+                 const int* e2, const int* order, const int* off2, float* d_basis,
+                 float* d_gate, int num_edges, int num_trip, cudaStream_t stream) {
+  const bool vec = num_trip % 4 == 0 && aligned16(e1) && aligned16(e2) && aligned16(order) &&
+                   aligned16(d_basis);
+  const int gate_blocks = (num_edges + kPairEdges - 1) / kPairEdges;
+  const long long per_block = (long long)kPairEdges * kPairTrip;
+  const int basis_blocks = (int)(((long long)num_trip + per_block - 1) / per_block);
+  backward_pair_kernel<LN><<<gate_blocks + basis_blocks, kPairEdges, 0, stream>>>(
+      basis, gate, g, e1, e2, order, off2, d_basis, d_gate, num_edges, num_trip, gate_blocks,
+      vec);
+}
+
 }  // namespace
 
 // Supported LN = l_max * n_max: 1..16. The Python wrapper checks the same
@@ -184,6 +330,8 @@ void launch_fwd(const float* basis, const float* gate, const int* e1, const int*
   X(16)
 #define M3G_CASE_FWD(LN_) \
   case LN_: launch_fwd<LN_>(b, gt, i1, i2, off, o, num_edges, num_trip, s); break;
+#define M3G_CASE_PAIR(LN_) \
+  case LN_: launch_pair<LN_>(b, gt, gg, i1, i2, ord, o2, db, dg, num_edges, num_trip, s); break;
 
 // fused_triplet_gate_sum(basis (rows, T), gate (rows, E), e1, e2) -> out (rows,
 // E); offsets is an (E + 1,) int32 scratch.
@@ -205,21 +353,28 @@ extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, c
   return (int)cudaGetLastError();
 }
 
-// backward_pair(basis (rows, T), gate (rows, E), g (rows, E), e1, e2)
-//   -> d_basis (rows, T), d_gate (rows, E), zeroed here before the adds.
+// backward_pair(basis (rows, T), gate (rows, E), g (rows, E), e1, e2, order,
+//   off2) -> d_basis (rows, T), d_gate (rows, E); every element of both is
+//   written.
 extern "C" int m3g_backward_pair(const void* basis, const void* gate, const void* g,
-                                 const void* e1, const void* e2, void* d_basis, void* d_gate,
-                                 int rows, int num_edges, int num_trip, void* stream) {
+                                 const void* e1, const void* e2, const void* order,
+                                 const void* off2, void* d_basis, void* d_gate, int rows,
+                                 int num_edges, int num_trip, void* stream) {
+  if (num_edges <= 0 || num_trip < 0) return (int)cudaErrorInvalidValue;
+  const float* b = static_cast<const float*>(basis);
+  const float* gt = static_cast<const float*>(gate);
+  const float* gg = static_cast<const float*>(g);
+  const int* i1 = static_cast<const int*>(e1);
+  const int* i2 = static_cast<const int*>(e2);
+  const int* ord = static_cast<const int*>(order);
+  const int* o2 = static_cast<const int*>(off2);
+  float* db = static_cast<float*>(d_basis);
+  float* dg = static_cast<float*>(d_gate);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(d_gate, 0, sizeof(float) * (size_t)rows * num_edges, s);
-  if (err != cudaSuccess) return (int)err;
-  if (num_trip > 0) {
-    const int grid = (num_trip + kBlock - 1) / kBlock;
-    backward_pair_kernel<<<grid, kBlock, 0, s>>>(
-        static_cast<const float*>(basis), static_cast<const float*>(gate),
-        static_cast<const float*>(g), static_cast<const int*>(e1), static_cast<const int*>(e2),
-        static_cast<float*>(d_basis), static_cast<float*>(d_gate), rows, num_edges, num_trip);
+  switch (rows) {
+    M3G_ROWS(M3G_CASE_PAIR)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

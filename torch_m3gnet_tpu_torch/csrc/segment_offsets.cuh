@@ -1,6 +1,7 @@
 // The offsets pass of the sorted-owner sums: sorted_segment.cu (B8),
 // factorized_stage.cu (q_scatter, B1) and fused_triplet.cu
 // (fused_triplet_gate_sum, B4) include it and run it before their sums.
+// (backward_pair, B5, takes its offsets of the e2 order from the batch.)
 //
 // segment_offsets(seg, offsets, m_len, S): seg (m_len,) is int32, sorted
 // ascending, with values in [0, S). For each boundary m in [0, m_len] (one
@@ -79,6 +80,19 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 // other threads read them.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// For a pipeline of staged tiles: close this thread's copies issued since
+// the last commit into one group, and wait until at most Pending of its
+// groups are still in flight (the newest ones). As above, a __syncthreads()
+// must follow before other threads read the copies.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
 }
 
 }  // namespace

@@ -21,16 +21,33 @@
 //      fused_triplet_gate_sum): each boundary m in [0, M] writes offsets[s]
 //      = first m with seg[m] >= s for every s in (seg[m-1], seg[m]], so
 //      each of the S + 1 offsets is written exactly once and no thread
-//      searches.
-//   2. The sums, chosen by the mean run length M / S (a function of the
-//      shapes only, so the same call always takes the same path):
-//      - segment_sum_tiled: one block per (row, 256 consecutive segments).
-//        Their runs are one contiguous span of the row, which the block
-//        stages through shared memory in 8,192-float tiles with coalesced
-//        loads; then each thread sums its own segment's part of the tile,
-//        in order, into four partial sums combined in a fixed order. A long
-//        run (the last node owns the padded edges) is one thread's longer
-//        loop.
+//      searches. The model's sums by edge_src and triplet_e1 take these
+//      offsets from the batch instead (built once per batch by to_torch),
+//      which saves the pass and its launch on every call.
+//   2. The sums, chosen from the shapes only (so the same call always takes
+//      the same path):
+//      - segment_sum_tiled<R>: one block per (R rows, sb consecutive
+//        segments), one thread per segment summing its run in all R rows
+//        (R <= 4).
+//        The segments' runs are one contiguous span of each row, which the
+//        block streams through two shared-memory buffers of kStage floats
+//        (R rows x kStage / R entries) with 16-byte cp.async copies where
+//        the rows and the pointer are 16-byte aligned (scalar copies
+//        otherwise): chunk k + 1 is in flight while chunk k is summed, and
+//        no registers hold the loads. Each thread adds its run's part of a
+//        chunk, in order, into R chunk partials that it adds to R sums
+//        carried across chunks. The offsets and span ends are read once for
+//        R rows. R and sb come from (F, S): the largest divisor R <= 4 of F
+//        whose grid (sb = 256) has kFullBlocks (four blocks per SM of an
+//        H100), else R = 1 with sb halved (down to 64) until the grid has
+//        one block per SM. So the node aggregation (F = 64, S = 3,584) runs
+//        R = 1, 896 blocks; the gather-mode triplet->edge sum (F = 9,
+//        S = 147,456) R = 3, 1,728 blocks; the forces (F = 3) R = 1 with 64
+//        segments a block, 168 blocks (one row of 256 segments a block gave
+//        42 there). On an H100, more rows a block (R = 2 and 4 at F = 64,
+//        R = 9 at F = 9) were slower: fewer blocks, fewer bytes in flight.
+//        The blocks run from the last segments down, so the block of the
+//        padded tail's long run (the last node) starts first.
 //      - segment_sum_block: for runs longer than kLongRun (the strain
 //        stress sums ~4,600 edges into each of 32 graphs), one block of 256
 //        threads per (segment, row), so the grid still fills the card:
@@ -46,43 +63,103 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "segment_offsets.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kTile = 8192;    // floats of a row staged per tile (32 KB)
-constexpr int kLongRun = 256;  // mean run above which a block owns a run
+constexpr int kBlock = 256;      // threads of segment_sum_block; most of segment_sum_tiled
+constexpr int kStage = 4096;     // floats per staging buffer of segment_sum_tiled (16 KB)
+constexpr int kLongRun = 256;    // mean run above which a block owns a run
+constexpr int kMaxRows = 4;       // rows per tiled block at most
+constexpr int kFullBlocks = 528;  // four blocks per SM of an H100 SXM (132 SMs)
+constexpr int kMinBlocks = 132;   // one block per SM
 
+// Block (blockIdx.x from the last segments down, blockIdx.y) owns segments
+// [s0, s0 + blockDim.x) of rows [f0, f0 + R), one thread per segment.
+template <int R>
 __global__ void __launch_bounds__(kBlock)
 segment_sum_tiled(const float* __restrict__ data, const int* __restrict__ offsets,
-                  float* __restrict__ out, int m_len, int num_segments) {
-  __shared__ float tile[kTile];
-  const int f = blockIdx.y;
-  const int s0 = blockIdx.x * kBlock;
+                  float* __restrict__ out, int rows, int m_len, int num_segments, bool vec) {
+  // Entries per chunk: a multiple of 32, so that every staged row starts
+  // 16-byte aligned.
+  constexpr int kChunk = (kStage / R) & ~31;
+  constexpr int kQuads = kChunk / 4;
+  __shared__ __align__(16) float buf[2][R * kChunk];
+  const int sb = blockDim.x;
+  const int s0 = (gridDim.x - 1 - blockIdx.x) * sb;
+  const int f0 = blockIdx.y * R;
+  const int nr = min(R, rows - f0);
   const int s = s0 + threadIdx.x;
   const bool live = s < num_segments;
   const int span_begin = __ldg(offsets + s0);
-  const int span_end = __ldg(offsets + min(s0 + kBlock, num_segments));
+  const int span_end = __ldg(offsets + min(s0 + sb, num_segments));
   const int begin = live ? __ldg(offsets + s) : 0;
   const int end = live ? __ldg(offsets + s + 1) : 0;
-  const float* __restrict__ row = data + (size_t)f * m_len;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int t0 = span_begin; t0 < span_end; t0 += kTile) {
-    const int t1 = min(t0 + kTile, span_end);
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll 8
-    for (int i = t0 + threadIdx.x; i < t1; i += kBlock) tile[i - t0] = __ldg(row + i);
-    __syncthreads();
-    const int lo = max(begin, t0), hi = min(end, t1);
-    int i = lo;
-    for (; i + 3 < hi; i += 4) {
+  const float* __restrict__ base = data + (size_t)f0 * m_len;
+  // With vec, chunks start on a multiple of 4 entries, so that every staged
+  // quad is one aligned 16-byte copy; the entries outside the span that
+  // this pulls in are never summed.
+  const int first = vec ? (span_begin & ~3) : span_begin;
+  const int chunks = span_end > first ? (span_end - first + kChunk - 1) / kChunk : 0;
+
+  // Issues chunk k's copies into buffer k & 1 as one cp.async group. Item i
+  // is row i / kQuads, quad i % kQuads; without vec, 4 single words.
+  auto stage = [&](int k) {
+    const int c0 = first + k * kChunk;
+    const int c1 = min(c0 + kChunk, span_end);
+    const int width = vec ? (c1 - c0 + 3) & ~3 : c1 - c0;
+    float* dst = buf[k & 1];
+    for (int i = threadIdx.x; i < R * kQuads; i += sb) {
+      const int r = i / kQuads, q = i % kQuads;
+      if (r >= nr) break;
+      const float* src = base + (size_t)r * m_len + c0 + 4 * q;
+      float* to = dst + r * kChunk + 4 * q;
+      if (vec) {
+        if (4 * q < width) cp_async16(to, src);
+      } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] += tile[i + k - t0];
+        for (int u = 0; u < 4; ++u)
+          if (4 * q + u < width) cp_async4(to + u, src + u);
+      }
     }
-    for (; i < hi; ++i) acc[0] += tile[i - t0];
+    cp_async_commit();
+  };
+
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  if (chunks > 0) stage(0);
+  for (int k = 0; k < chunks; ++k) {
+    if (k + 1 < chunks) {
+      stage(k + 1);  // its buffer was last read before the previous barrier
+      cp_async_wait_group<1>();
+    } else {
+      cp_async_wait_group<0>();
+    }
+    __syncthreads();  // chunk k is in shared memory
+    const int c0 = first + k * kChunk;
+    const int lo = max(begin, c0) - c0, hi = min(end, min(c0 + kChunk, span_end)) - c0;
+    if (lo < hi) {
+      const float* src = buf[k & 1];
+      float part[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) part[r] = 0.f;
+      for (int i = lo; i < hi; ++i) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) part[r] += src[r * kChunk + i];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] += part[r];
+    }
+    __syncthreads();  // chunk k is consumed
   }
-  if (live) out[(size_t)f * num_segments + s] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < nr) out[(size_t)(f0 + r) * num_segments + s] = acc[r];
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -107,26 +184,63 @@ segment_sum_block(const float* __restrict__ data, const int* __restrict__ offset
   }
 }
 
+// The tiled sum's (rows per block, segments per block) for F rows and S
+// segments; see the file comment.
+void tiled_shape(int rows, int num_segments, int* r_out, int* sb_out) {
+  const long long groups = (num_segments + kBlock - 1) / kBlock;
+  for (int r = min(rows, kMaxRows); r > 1; --r) {
+    if (rows % r == 0 && (long long)(rows / r) * groups >= kFullBlocks) {
+      *r_out = r;
+      *sb_out = kBlock;
+      return;
+    }
+  }
+  int sb = kBlock;
+  while (sb > 64 && (long long)rows * ((num_segments + sb - 1) / sb) < kMinBlocks) sb /= 2;
+  *r_out = 1;
+  *sb_out = sb;
+}
+
+template <int R>
+void launch_tiled(const float* x, const int* off, float* o, int rows, int m_len,
+                  int num_segments, int sb, bool vec, cudaStream_t s) {
+  const dim3 grid((num_segments + sb - 1) / sb, (rows + R - 1) / R);
+  segment_sum_tiled<R><<<grid, sb, 0, s>>>(x, off, o, rows, m_len, num_segments, vec);
+}
+
 }  // namespace
 
+#define M3G_SEG_ROWS(X) X(1) X(2) X(3) X(4)
+#define M3G_CASE_TILED(R_) \
+  case R_: launch_tiled<R_>(x, off, o, rows, m_len, num_segments, sb, vec, s); break;
+
 // sorted_segment_sum(data (rows, m_len), seg (m_len,)) -> out (rows,
-// num_segments); offsets is an (num_segments + 1,) int32 scratch. Every
-// output element is written, empty segments with 0.
+// num_segments). offsets is (num_segments + 1,) int32: with offsets_given
+// it holds seg's offsets already (the batch's, built once per batch) and
+// the offsets pass is skipped; otherwise it is a scratch that the pass
+// fills. Every output element is written, empty segments with 0.
 extern "C" int m3g_sorted_segment_sum(const void* data, const void* seg, void* offsets,
                                       void* out, int rows, int m_len, int num_segments,
-                                      void* stream) {
+                                      int offsets_given, void* stream) {
   if (rows <= 0 || num_segments <= 0 || m_len < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(data);
   int* off = static_cast<int*>(offsets);
   float* o = static_cast<float*>(out);
-  launch_segment_offsets(static_cast<const int*>(seg), off, m_len, num_segments, s);
+  if (!offsets_given)
+    launch_segment_offsets(static_cast<const int*>(seg), off, m_len, num_segments, s);
   if (m_len / num_segments > kLongRun) {
     segment_sum_block<<<dim3(num_segments, rows), kBlock, 0, s>>>(x, off, o, m_len,
                                                                  num_segments);
   } else {
-    const int groups = (num_segments + kBlock - 1) / kBlock;
-    segment_sum_tiled<<<dim3(groups, rows), kBlock, 0, s>>>(x, off, o, m_len, num_segments);
+    int r = 1, sb = kBlock;
+    tiled_shape(rows, num_segments, &r, &sb);
+    const bool vec = m_len % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    switch (r) {
+      M3G_SEG_ROWS(M3G_CASE_TILED)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,14 @@ from torch_m3gnet_tpu_torch.data.triplets import compute_threebody
 # Index fields: int32 on the host, contiguous int32 tensors on the device.
 INDEX_FIELDS = (
     "atom_types", "node_graph", "edge_src", "edge_dst", "triplet_e1",
-    "triplet_e2", "n_node", "triplet_node_k",
+    "triplet_e2", "n_node", "triplet_node_k", "edge_src_offsets", "triplet_e1_offsets",
+    "triplet_e2_order", "triplet_e2_offsets",
 )
+# The per-batch index of the kernels, built by to_torch (None on the host).
+BATCH_INDEX_FIELDS = INDEX_FIELDS[-4:]
+# The fields that the index is built from: replacing one (or the node
+# count) drops the index that a batch carries.
+_INDEX_SOURCES = ("edge_src", "triplet_e1", "triplet_e2")
 
 
 @dataclass(frozen=True)
@@ -70,6 +76,19 @@ class GraphBatch:
     # node k = edge_dst[triplet_e2], precomputed at pack time
     triplet_node_k: Optional[Any] = None  # (T,) i32
 
+    # The per-batch index of the kernels, built by to_torch once per batch
+    # (None on the host), each part only where the model's mode reads it:
+    # the run offsets of the sorted edge_src and triplet_e1
+    # (ops.sorted_segment.sorted_segment_offsets), with which the sorted
+    # segment sums by them skip their offsets pass, and the e2 order
+    # (ops.fused_triplet.triplet_e2_order), which the fused stage's backward
+    # kernel sums dG by: the stable permutation that sorts triplet_e2, and
+    # each edge's run [off[e], off[e+1]) of it.
+    edge_src_offsets: Optional[Any] = None  # (N + 1,) i32
+    triplet_e1_offsets: Optional[Any] = None  # (E + 1,) i32
+    triplet_e2_order: Optional[Any] = None  # (T,) i32
+    triplet_e2_offsets: Optional[Any] = None  # (E + 1,) i32
+
     num_graphs_real: int = 0
 
     @property
@@ -89,6 +108,15 @@ class GraphBatch:
         return int(self.lattice.shape[0])
 
     def replace(self, **kwargs: Any) -> "GraphBatch":
+        """A copy with ``kwargs`` replaced. A new ``edge_src``,
+        ``triplet_e1`` or ``triplet_e2``, or positions with another node
+        count, drops the kernel index built from the old ones (the index
+        fields not given in ``kwargs`` become None; ``to_torch`` builds them
+        anew)."""
+        positions = kwargs.get("positions")
+        if any(k in kwargs for k in _INDEX_SOURCES) or (
+                positions is not None and positions.shape[0] != self.num_nodes):
+            kwargs = {**dict.fromkeys(BATCH_INDEX_FIELDS), **kwargs}
         return dataclasses.replace(self, **kwargs)
 
 
@@ -288,7 +316,7 @@ def pack_structures(
     )
 
 
-def to_torch(batch, device, dtype=None) -> GraphBatch:
+def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
     """Copy a batch to ``device`` as torch tensors.
 
     Index fields become contiguous int32 tensors (the CUDA kernels take
@@ -303,15 +331,29 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
     ``node_graph`` sorted ascending, every graph index in [0, B) (the strain
     stress sums by ``edge_graph = node_graph[edge_src]``, sorted only if
     ``node_graph`` is).
+
+    ``index`` names the parts of the kernels' per-batch index to build
+    (of ``BATCH_INDEX_FIELDS``: the offsets of ``edge_src`` and
+    ``triplet_e1``, and the e2 order, ``triplet_e2_order`` with
+    ``triplet_e2_offsets``), on ``device`` from the copied indices: device
+    searches, and one stable device sort for the e2 order. The potential
+    asks for those its three-body mode reads (``M3GNet.batch_index``). A
+    host batch gets the named parts and no other; a tensor batch keeps the
+    index it carries and gets the named parts it lacks
+    (``GraphBatch.replace`` drops an index whose sources it replaces).
     """
     import torch
 
+    unknown = set(index) - set(BATCH_INDEX_FIELDS)
+    if unknown:
+        raise ValueError(f"unknown batch index fields {sorted(unknown)}")
     if getattr(batch, "halo_send_idx", None) is not None:
         raise NotImplementedError(
             "graph-parallel batches (a halo plan) come with the port's parallel slice"
         )
     src = batch.edge_src
-    if not isinstance(src, torch.Tensor):
+    host = not isinstance(src, torch.Tensor)
+    if host:
         src, dst = np.asarray(src), np.asarray(batch.edge_dst)
         n = int(np.asarray(batch.positions).shape[0])
         if np.any(np.diff(src) < 0):
@@ -334,6 +376,8 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
     def conv(name, a):
         if a is None or name == "num_graphs_real":
             return a
+        if name in BATCH_INDEX_FIELDS and host:  # built below from the copied indices
+            return None
         if name in INDEX_FIELDS:
             return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
         t = torch.as_tensor(a, device=device)
@@ -341,6 +385,20 @@ def to_torch(batch, device, dtype=None) -> GraphBatch:
             t = t.to(dtype)
         return t
 
-    return GraphBatch(
-        **{f.name: conv(f.name, getattr(batch, f.name)) for f in dataclasses.fields(GraphBatch)}
+    out = GraphBatch(
+        **{f.name: conv(f.name, getattr(batch, f.name, None))
+           for f in dataclasses.fields(GraphBatch)}
     )
+    from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
+    from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
+
+    built = {}
+    if "edge_src_offsets" in index and out.edge_src_offsets is None:
+        built["edge_src_offsets"] = sorted_segment_offsets(out.edge_src, out.num_nodes)
+    if "triplet_e1_offsets" in index and out.triplet_e1_offsets is None:
+        built["triplet_e1_offsets"] = sorted_segment_offsets(out.triplet_e1, out.num_edges)
+    if {"triplet_e2_order", "triplet_e2_offsets"} & set(index) and (
+            out.triplet_e2_order is None or out.triplet_e2_offsets is None):
+        built["triplet_e2_order"], built["triplet_e2_offsets"] = triplet_e2_order(
+            out.triplet_e2, out.num_edges)
+    return out.replace(**built) if built else out

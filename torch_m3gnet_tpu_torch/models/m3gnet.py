@@ -49,7 +49,7 @@ from torch_m3gnet_tpu_torch.ops.basis import (
     smooth_radial_basis_fm,
 )
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
-from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum
+from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum, triplet_e2_order
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
 from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
@@ -142,6 +142,16 @@ class M3GNet(nn.Module):
         )
         self.sph_norm = [math.sqrt((2 * ell + 1) / (4.0 * math.pi)) for ell in range(l_max)]
 
+    @property
+    def batch_index(self) -> tuple[str, ...]:
+        """The parts of the per-batch kernel index (``data.to_torch``) that
+        this mode reads: the ``edge_src`` offsets in every mode (the node
+        aggregation and the forces), the ``triplet_e1`` offsets in the
+        gather mode, the e2 order in the fused mode."""
+        extra = {"gather": ("triplet_e1_offsets",),
+                 "fused": ("triplet_e2_order", "triplet_e2_offsets")}
+        return ("edge_src_offsets",) + extra.get(self.threebody_mode, ())
+
     def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor):
         """Returns (per-graph energy (B,), per-atom energy (N,)), both in eV."""
         dtype = r_vec_fm.dtype
@@ -184,7 +194,8 @@ class M3GNet(nn.Module):
             node_msg = getattr(self, f"conv_node_{b}")(concat) * getattr(
                 self, f"conv_node_w_{b}"
             )(ew_fm)
-            v_fm = v_fm + sorted_segment_sum_fm(node_msg * edge_mask, src, num_nodes)
+            v_fm = v_fm + sorted_segment_sum_fm(node_msg * edge_mask, src, num_nodes,
+                                                graph.edge_src_offsets)
 
         # --- readout
         atomic = self.readout(v_fm)[0]  # (N,)
@@ -249,15 +260,20 @@ class M3GNet(nn.Module):
 
         if fused:
             # gate pre-gathered node -> edge (E-scale); the kernel's T-scale
-            # reads of it by e2 are then window-local.
+            # reads of it by e2 are then window-local. The batch's e2 order
+            # goes with it, for the backward kernel's sum by e2 (built here
+            # for a batch that lacks it).
+            e2_order = (graph.triplet_e2_order, graph.triplet_e2_offsets)
+            if e2_order[0] is None or e2_order[1] is None:
+                e2_order = triplet_e2_order(e2, num_edges)
             return lambda gate_fm: fused_triplet_gate_sum(
-                basis_fm, take_fm(gate_fm, dst), e1, e2, num_edges
+                basis_fm, take_fm(gate_fm, dst), e1, e2, num_edges, e2_order
             )
         node_k = graph.triplet_node_k
         if node_k is None:
             node_k = dst.index_select(0, e2)
         return lambda gate_fm: sorted_segment_sum_fm(
-            basis_fm * take_fm(gate_fm, node_k), e1, num_edges
+            basis_fm * take_fm(gate_fm, node_k), e1, num_edges, graph.triplet_e1_offsets
         )
 
 
@@ -293,7 +309,7 @@ class M3GNetPotential(nn.Module):
 
     def forward(self, batch, create_graph: bool = False) -> PotentialOutput:
         param = self.model.edge_init.kernel
-        graph = to_torch(batch, param.device, param.dtype)
+        graph = to_torch(batch, param.device, param.dtype, self.model.batch_index)
         positions, lattice = graph.positions, graph.lattice
         nb = graph.num_graphs
         with torch.enable_grad():
@@ -306,7 +322,7 @@ class M3GNetPotential(nn.Module):
         src, dst = graph.edge_src, graph.edge_dst
         nmask = graph.node_mask.to(g_fm.dtype)[None, :]
         forces = ((
-            sorted_segment_sum_fm(g_fm, src, graph.num_nodes)
+            sorted_segment_sum_fm(g_fm, src, graph.num_nodes, graph.edge_src_offsets)
             - segment_sum_fm(g_fm, dst, graph.num_nodes)
         ) * nmask).t()  # (N, 3)
 
@@ -386,6 +402,11 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         raise NotImplementedError(
             f"compute_dtype={config.compute_dtype!r} comes with a later slice "
             "of the port; this one computes in float32 (or float64)"
+        )
+    if config.remat_triplets:
+        raise NotImplementedError(
+            "remat_triplets=True (rematerialising the three-body stage in the "
+            "backward pass) comes with a later slice of the port"
         )
     device = resolve_device(device)
     if device.type == "cuda":

@@ -38,10 +38,12 @@ _ENTRIES = {
     "m3g_windowed_scatter": [_P] * 3 + [_I] * 3 + [_P],
     # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip, stream)
     "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 3 + [_P],
-    # (basis, gate, g, e1, e2, d_basis, d_gate, rows, num_edges, num_trip, stream)
-    "m3g_backward_pair": [_P] * 7 + [_I] * 3 + [_P],
-    # (data, seg, offsets scratch, out, rows, num_rows_m, num_segments, stream)
-    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
+    # (basis, gate, g, e1, e2, e2 order, e2 offsets, d_basis, d_gate, rows,
+    #  num_edges, num_trip, stream)
+    "m3g_backward_pair": [_P] * 9 + [_I] * 3 + [_P],
+    # (data, seg, offsets (given or scratch), out, rows, num_rows_m, num_segments,
+    #  offsets given, stream)
+    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

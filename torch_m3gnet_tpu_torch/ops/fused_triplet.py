@@ -14,7 +14,13 @@ and its VJP, itself a first-class op:
 ``e1`` (the triplet's i->j edge) is int32, sorted ascending, in [0, E): the
 forward kernel takes each edge's run of triplets from an offsets pass over
 it. ``e2`` (the i->k edge) is int32 in [0, E), unsorted. Padded triplets
-carry zero basis.
+carry zero basis. The backward kernel sums ``dG`` by ``e2`` through the
+batch's e2 order, ``e2_order = (order, offsets)`` from
+:func:`triplet_e2_order`: a property of the batch, which ``data.to_torch``
+builds once per batch for the fused mode (``GraphBatch.triplet_e2_order`` /
+``triplet_e2_offsets``) and the model passes in; the forward keeps it for
+the backward and the double backward. Both ops take it; the plain
+versions do not read it.
 
 Each op has a hand-written CUDA kernel (``csrc/fused_triplet.cu``), a plain
 torch version (``*_plain``) and an ``autograd.Function``. The Function runs
@@ -69,12 +75,25 @@ def backward_pair_plain(basis_fm, gate_e_fm, g, e1, e2, num_edges: int):
     return g1 * take_fm(gate_e_fm, e2), segment_sum_fm(g1 * basis_fm, e2, num_edges)
 
 
+def triplet_e2_order(e2: torch.Tensor, num_edges: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The e2 order of a batch, on ``e2``'s device: ``order`` (T,) int32, the
+    stable permutation that sorts ``e2`` (so each edge's triplets keep
+    ascending t), and ``offsets`` (num_edges + 1,) int32, where edge e owns
+    ``order[offsets[e]:offsets[e + 1]]``. One device sort, once per batch:
+    what the backward kernel's sorted-owner sum of dG needs, as JAX's
+    ``_prep`` computes its tiles' window bounds."""
+    sorted_e2, order = torch.sort(e2, stable=True)
+    edges = torch.arange(num_edges + 1, dtype=sorted_e2.dtype, device=e2.device)
+    offsets = torch.searchsorted(sorted_e2, edges)
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
 
-def _check(name, e1, e2, num_edges, pairs) -> bool:
+def _check(name, e1, e2, num_edges, pairs, order, off2) -> bool:
     """Validate shapes (every path); True for the CUDA path."""
     t = e1.shape[0] if e1.dim() == 1 else -1
     if e1.dim() != 1 or tuple(e2.shape) != (t,):
@@ -82,21 +101,32 @@ def _check(name, e1, e2, num_edges, pairs) -> bool:
             f"{name}: e1 and e2 must be 1-D of one length, got "
             f"{tuple(e1.shape)} and {tuple(e2.shape)}"
         )
+    if tuple(order.shape) != (t,) or tuple(off2.shape) != (num_edges + 1,):
+        raise ValueError(
+            f"{name}: the e2 order must be ({t},) and ({num_edges + 1},), got "
+            f"{tuple(order.shape)} and {tuple(off2.shape)}"
+        )
+    indices = [("e1", e1), ("e2", e2), ("e2 order", order), ("e2 offsets", off2)]
     rows = pairs[0][1].shape[0] if pairs[0][1].dim() == 2 else -1
     for label, x, cols in pairs:
         want = (rows, t if cols == "T" else num_edges)
         if tuple(x.shape) != want:
             raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected {want}")
-    return _cuda.is_cuda(name, [(label, x) for label, x, _ in pairs], [("e1", e1), ("e2", e2)])
+    return _cuda.is_cuda(name, [(label, x) for label, x, _ in pairs], indices)
 
 
-def _forward(basis_fm, gate_e_fm, e1, e2, num_edges):
-    name = "fused_triplet_gate_sum"
-    if not _check(name, e1, e2, num_edges, [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E")]):
-        return fused_triplet_gate_sum_plain(basis_fm, gate_e_fm, e1, e2, num_edges)
-    rows, t = basis_fm.shape
+def _rows(name, rows):
     if not 1 <= rows <= KERNEL_MAX_ROWS:
         raise ValueError(f"{name}: the CUDA kernel is built for 1..{KERNEL_MAX_ROWS} rows, got {rows}")
+
+
+def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+    name = "fused_triplet_gate_sum"
+    pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E")]
+    if not _check(name, e1, e2, num_edges, pairs, order, off2):
+        return fused_triplet_gate_sum_plain(basis_fm, gate_e_fm, e1, e2, num_edges)
+    rows, t = basis_fm.shape
+    _rows(name, rows)
     out = torch.empty((rows, num_edges), dtype=torch.float32, device=basis_fm.device)
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
@@ -108,12 +138,13 @@ def _forward(basis_fm, gate_e_fm, e1, e2, num_edges):
     return out
 
 
-def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges):
+def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
     name = "backward_pair"
     pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E"), ("g", g, "E")]
-    if not _check(name, e1, e2, num_edges, pairs):
+    if not _check(name, e1, e2, num_edges, pairs, order, off2):
         return backward_pair_plain(basis_fm, gate_e_fm, g, e1, e2, num_edges)
     rows, t = basis_fm.shape
+    _rows(name, rows)
     dev = basis_fm.device
     d_basis = torch.empty((rows, t), dtype=torch.float32, device=dev)
     if d_basis.numel() == 0:  # no triplets: nothing to launch
@@ -122,7 +153,8 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges):
     basis_fm, gate_e_fm, g = basis_fm.contiguous(), gate_e_fm.contiguous(), g.contiguous()
     _cuda.launch(LAUNCHES, name, "m3g_backward_pair", dev,
                  basis_fm.data_ptr(), gate_e_fm.data_ptr(), g.data_ptr(), e1.data_ptr(),
-                 e2.data_ptr(), d_basis.data_ptr(), d_gate.data_ptr(), rows, num_edges, t)
+                 e2.data_ptr(), order.data_ptr(), off2.data_ptr(), d_basis.data_ptr(),
+                 d_gate.data_ptr(), rows, num_edges, t)
     return d_basis, d_gate
 
 
@@ -133,46 +165,53 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges):
 
 class FusedTripletGateSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, basis_fm, gate_e_fm, e1, e2, num_edges):
-        ctx.save_for_backward(basis_fm, gate_e_fm, e1, e2)
+    def forward(ctx, basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+        ctx.save_for_backward(basis_fm, gate_e_fm, e1, e2, order, off2)
         ctx.num_edges = num_edges
-        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges)
+        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def backward(ctx, g):
-        basis_fm, gate_e_fm, e1, e2 = ctx.saved_tensors
-        d_basis, d_gate = backward_pair(basis_fm, gate_e_fm, g, e1, e2, ctx.num_edges)
-        return d_basis, d_gate, None, None, None
+        basis_fm, gate_e_fm, e1, e2, order, off2 = ctx.saved_tensors
+        d_basis, d_gate = BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, ctx.num_edges,
+                                             order, off2)
+        return d_basis, d_gate, None, None, None, None, None
 
 
 class BackwardPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, basis_fm, gate_e_fm, g, e1, e2, num_edges):
-        ctx.save_for_backward(basis_fm, gate_e_fm, g, e1, e2)
+    def forward(ctx, basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+        ctx.save_for_backward(basis_fm, gate_e_fm, g, e1, e2, order, off2)
         ctx.num_edges = num_edges
-        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges)
+        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def backward(ctx, u_b, u_g):
-        basis_fm, gate_e_fm, g, e1, e2 = ctx.saved_tensors
+        basis_fm, gate_e_fm, g, e1, e2, order, off2 = ctx.saved_tensors
         e = ctx.num_edges
         # d/dB <u_g, dG> = g[:, e1] * u_g[:, e2] and d/dG <u_b, dB> =
         # scatter_e2(g[:, e1] * u_b): one backward_pair call with (u_b, u_g).
-        g_basis, g_gate = backward_pair(u_b, u_g, g, e1, e2, e)
+        g_basis, g_gate = BackwardPair.apply(u_b, u_g, g, e1, e2, e, order, off2)
         g_g = None
         if ctx.needs_input_grad[2]:
-            g_g = (fused_triplet_gate_sum(u_b, gate_e_fm, e1, e2, e)
-                   + fused_triplet_gate_sum(basis_fm, u_g, e1, e2, e))
-        return g_basis, g_gate, g_g, None, None, None
+            g_g = (FusedTripletGateSum.apply(u_b, gate_e_fm, e1, e2, e, order, off2)
+                   + FusedTripletGateSum.apply(basis_fm, u_g, e1, e2, e, order, off2))
+        return g_basis, g_gate, g_g, None, None, None, None, None
 
 
-def fused_triplet_gate_sum(basis_fm, gate_e_fm, e1, e2, num_edges: int) -> torch.Tensor:
+def fused_triplet_gate_sum(basis_fm, gate_e_fm, e1, e2, num_edges: int,
+                           e2_order) -> torch.Tensor:
     """out[:, e] = sum_{t: e1[t]=e} basis[:, t] * gate_e[:, e2[t]]: (LN, T),
-    (LN, E), sorted int32 e1 (T,), int32 e2 (T,) -> (LN, num_edges)."""
-    return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges)
+    (LN, E), sorted int32 e1 (T,), int32 e2 (T,) -> (LN, num_edges).
+    ``e2_order``: the batch's :func:`triplet_e2_order`, kept for the
+    backward."""
+    order, off2 = e2_order
+    return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
 
 
-def backward_pair(basis_fm, gate_e_fm, g, e1, e2, num_edges: int):
+def backward_pair(basis_fm, gate_e_fm, g, e1, e2, num_edges: int, e2_order):
     """(dB, dG) of :func:`fused_triplet_gate_sum` for the output cotangent
-    ``g`` (LN, E): dB (LN, T), dG (LN, num_edges)."""
-    return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges)
+    ``g`` (LN, E): dB (LN, T), dG (LN, num_edges). ``e2_order``: the
+    batch's :func:`triplet_e2_order`, along which the kernel sums dG."""
+    order, off2 = e2_order
+    return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)

@@ -59,7 +59,7 @@ def loss_and_metrics(potential, batch, config: M3GNetConfig, create_graph: bool 
     (0-d tensors). ``create_graph=True`` keeps the graph of the forces and
     stress, so the loss differentiates to the weights."""
     param = next(potential.parameters())
-    graph = to_torch(batch, param.device, param.dtype)
+    graph = to_torch(batch, param.device, param.dtype, index=())  # the potential builds its own
     out = potential(graph, create_graph=create_graph)
     dtype = out.energy.dtype
     gmask = graph.graph_mask.to(dtype)
