@@ -17,12 +17,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    four sorted sums of the path, with the batch's offsets where the model
    passes them: forward, VJP (the gather), gradient of the gradient (B8
    again), two calls bitwise equal and equal to a call that runs the
-   kernel's own offsets pass; then B1, B4 and B5 on
+   kernel's own offsets pass; then B1-B5 on
    the sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
    20,480-entry run, runs across chunk boundaries, a ragged segment count,
    long stretches of empty segments; B4 and B5 with uniform random e2) at
-   (l_max, n_max) = (1, 1), (3, 3), (4, 4) and LN = 1, 9, 16: equal to the
-   plain versions (dyadic data, exact sums), two calls bitwise equal;
+   (l_max, n_max) = (1, 1), (3, 3), (4, 4) (B2 and B3 also with the operand
+   as an offset view, a pointer that is not 16-byte aligned) and LN = 1, 9, 16:
+   equal to the plain versions (dyadic data, exact sums), two calls bitwise
+   equal;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -170,11 +172,11 @@ def stage_inputs(num_nodes: int, num_edges: int, l_max: int, n_max: int, device)
     )
 
 
-# Sorted indices that stress the sorted-owner sums (B1 by src, B4 by e1)
-# beyond the bench batch: the CPU tests hold the plain versions to JAX on
-# them and phase 3 holds the kernels to the plain versions. B1 blocks own 4
-# nodes and stage 512 edges per chunk; B4 blocks own 256 edges and stage
-# 8,192 / (LN + 1) triplets per chunk.
+# Sorted indices that stress the sorted-owner sums (B1 by src, B4 by e1) and
+# the gathers by src (B2, B3) beyond the bench batch: the CPU tests hold the
+# plain versions to JAX on them and phase 3 holds the kernels to the plain
+# versions. B1 blocks own 4 nodes and stage 512 edges per chunk; B4 blocks
+# own 256 edges and stage 8,192 / (LN + 1) triplets per chunk.
 SORTED_CASES = ("one-segment", "long-run", "chunk-crossing", "ragged-count", "empty-stretches")
 
 
@@ -228,6 +230,25 @@ def q_case_inputs(case: str, l_max: int, n_max: int):
     return dyadic(rng, (l_max * l_max, e)), dyadic(rng, (l_max * n_max, e)), src, n
 
 
+def r_case_inputs(case: str, op: str, l_max: int, n_max: int):
+    """(A (MN, N), operand, sorted src (E,), N) for B2 (``op`` "r1_gather",
+    operand sh (M, E)) or B3 ("r2_gather", operand gm (LN, E)), numpy."""
+    sh, gm, src, n = q_case_inputs(case, l_max, n_max)
+    rng = np.random.default_rng(70 + SORTED_CASES.index(case))
+    a = dyadic(rng, (l_max * l_max * n_max, n))
+    return a, sh if op == "r1_gather" else gm, src, n
+
+
+def offset_view(x):
+    """A contiguous copy of ``x`` whose data pointer lies 4 bytes past a
+    16-byte boundary: a kernel that vectorizes its accesses must take its
+    scalar path on it."""
+    buf = x.new_empty(x.numel() + 1)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def triplet_case_inputs(case: str, ln: int):
     """(basis (LN, T), gate (LN, E), sorted e1 (T,), e2 (T,), E) for B4, numpy."""
     e1, e = sorted_index_case(case)
@@ -238,10 +259,11 @@ def triplet_case_inputs(case: str, ln: int):
 
 
 def check_sorted_index_cases() -> None:
-    """B1, B4 and B5 against their plain versions on every case of
-    ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) and LN = 1,
-    9, 16: equal to them (dyadic data: every sum is exact in any order),
-    and two kernel calls bitwise equal."""
+    """B1, B2, B3, B4 and B5 against their plain versions on every case of
+    ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) (B1-B3; B2
+    and B3 also with the operand as an offset view, whose pointer is not
+    16-byte aligned) and LN = 1, 9, 16 (B4, B5): equal to them (dyadic data:
+    every sum is exact in any order), and two kernel calls bitwise equal."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
@@ -263,8 +285,17 @@ def check_sorted_index_cases() -> None:
         for l_max, n_max in ((1, 1), (3, 3), (4, 4)):
             sh, gm, src, n = q_case_inputs(case, l_max, n_max)
             args = (*(torch.as_tensor(x, device="cuda") for x in (sh, gm, src)), n, l_max, n_max)
-            run(f"q_scatter {case} (l_max, n_max) = ({l_max}, {n_max}), E = {src.shape[0]}, "
-                f"N = {n}", lambda: fs.q_scatter(*args), lambda: fs.q_scatter_plain(*args))
+            tag = f"{case} (l_max, n_max) = ({l_max}, {n_max}), E = {src.shape[0]}, N = {n}"
+            run(f"q_scatter {tag}", lambda: fs.q_scatter(*args), lambda: fs.q_scatter_plain(*args))
+            for op in ("r1_gather", "r2_gather"):
+                a, x, r_src, _ = r_case_inputs(case, op, l_max, n_max)
+                ta, tx, ts = (torch.as_tensor(v, device="cuda") for v in (a, x, r_src))
+                plain = getattr(fs, f"{op}_plain")
+                # the operand as given and as an unaligned offset view
+                for label, operand in (("", tx), (", offset operand", offset_view(tx))):
+                    run(f"{op} {tag}{label}",
+                        lambda: getattr(fs, op)(ta, operand, ts, l_max, n_max),
+                        lambda: plain(ta, operand, ts, l_max, n_max))
         for ln in (1, 9, 16):
             basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
             g = dyadic(np.random.default_rng(60 + ln), gate.shape)

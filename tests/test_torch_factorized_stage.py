@@ -20,7 +20,9 @@ import chip_smoke
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import q_scatter as jq
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import q_scatter_xla
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r1_gather as jr1
+from torch_m3gnet_tpu.ops.pallas_factorized_stage import r1_gather_xla
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r2_gather as jr2
+from torch_m3gnet_tpu.ops.pallas_factorized_stage import r2_gather_xla
 from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
 
 L_MAX, N_MAX = 3, 3
@@ -121,6 +123,27 @@ def test_q_scatter_sorted_index_cases(case, sizes):
         np.testing.assert_allclose(x.numpy(), want, atol=2e-5)
     empty = np.setdiff1d(np.arange(n), src)
     assert empty.size and not got[:, empty].any()
+
+
+@pytest.mark.parametrize("sizes", [(1, 1), (3, 3), (4, 4)])
+@pytest.mark.parametrize("case", chip_smoke.SORTED_CASES)
+@pytest.mark.parametrize("op", ["r1_gather", "r2_gather"])
+def test_r_gather_sorted_index_cases(op, case, sizes):
+    """R1 and R2 (Function and plain version) against r1_gather_xla and
+    r2_gather_xla on the sorted indices that chip_smoke.py holds the kernels
+    to: one node under every edge, a 20,480-edge run, runs of up to 160
+    edges, a ragged node count, long stretches of empty nodes. Dyadic data
+    and A of shape (MN, S) from a seed; atol 2e-5 as above."""
+    l_max, n_max = sizes
+    a, x, src, n = chip_smoke.r_case_inputs(case, op, l_max, n_max)
+    xla = r1_gather_xla if op == "r1_gather" else r2_gather_xla
+    want = np.asarray(xla(*map(jnp.asarray, (a, x, src)), src.shape[0], l_max, n_max))
+    ta, tx, tsrc = _t(a, x, src)
+    plain = getattr(fs, f"{op}_plain")
+    rows = l_max * n_max if op == "r1_gather" else l_max * l_max
+    for got in (getattr(fs, op)(ta, tx, tsrc, l_max, n_max), plain(ta, tx, tsrc, l_max, n_max)):
+        assert tuple(got.shape) == (rows, src.shape[0]) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
 @pytest.mark.parametrize("op", ["q_scatter", "r1_gather", "r2_gather"])
