@@ -13,16 +13,22 @@ Phases (each raises on failure, so any failure exits non-zero):
    the composed factorized stage (B1-B3), ``fused_triplet_gate_sum``
    through ``backward_pair`` (B4, B5, with the batch's e2 order; B5 two
    calls bitwise equal), ``windowed_take_fm`` through
-   ``windowed_scatter_fm`` (B6, B7), and ``sorted_segment_sum`` (B8) at the
+   ``windowed_scatter_fm`` (B6, B7; B7 sums along the batch's owners of
+   each index, the ``triplet_e1`` offsets and the e2 order, two calls
+   bitwise equal; also without owners, which its wrapper then builds), and
+   ``sorted_segment_sum`` (B8) at the
    four sorted sums of the path, with the batch's offsets where the model
    passes them: forward, VJP (the gather), gradient of the gradient (B8
    again), two calls bitwise equal and equal to a call that runs the
-   kernel's own offsets pass; then B1-B5 on
+   kernel's own offsets pass; then B1-B5 and B7 on
    the sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
    20,480-entry run, runs across chunk boundaries, a ragged segment count,
    long stretches of empty segments; B4 and B5 with uniform random e2) at
    (l_max, n_max) = (1, 1), (3, 3), (4, 4) (B2 and B3 also with the operand
-   as an offset view, a pointer that is not 16-byte aligned) and LN = 1, 9, 16:
+   as an offset view, a pointer that is not 16-byte aligned) and LN = 1, 9, 16,
+   B7 by the sorted ids with their offsets and with their (identity) order
+   and by uniform random ids with their order, its values also as an
+   offset view:
    equal to the plain versions (dyadic data, exact sums), two calls bitwise
    equal;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
@@ -55,7 +61,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    no dirty line), ``cold_dirty_us`` after the older ``zero_()`` flush
    (dirty lines that the timed call writes back) and ``warm_us`` with the
    inputs just touched; the plain, library and ``parts_us`` times take the
-   clean flush.
+   clean flush. B6 and B7 time their ``e1`` and their ``e2`` call apart
+   (``per_call``), and B7's row gives each call's own bytes and bound
+   (``design_bytes``, ``design_bound_us``): its sorted-owner sum reads the
+   offsets (and, by e2, the order) instead of the ids.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
@@ -91,9 +100,9 @@ MODEL_TOL = 1e-4
 # Card vs CPU for one training step: the loss within MODEL_TOL, and each
 # weight gradient within TRAIN_TOL of that tensor's largest magnitude. The
 # gradients go through the double backward of three blocks: f32 sums over
-# 147k edges in other orders (B7's atomics, cuBLAS, the atomics of the
-# index_add sums by dst on the card; sequential on the CPU; B5 sums by the
-# e2 order with no atomics, so it no longer varies between runs); the CPU
+# 147k edges in other orders (cuBLAS, the atomics of the index_add sums by
+# dst on the card; sequential on the CPU; B5 and B7 sum along the batch's
+# owners with no atomics, so they do not vary between runs); the CPU
 # rehearsal at 2,816 edges left 1.8e-6 between f32 and f64 in the worst
 # tensor.
 TRAIN_TOL = 2e-4
@@ -258,16 +267,29 @@ def triplet_case_inputs(case: str, ln: int):
     return dyadic(rng, (ln, t)), dyadic(rng, (ln, e)), e1, e2, e
 
 
+def scatter_case_inputs(case: str, f: int = 4):
+    """(vals (F, T), sorted e1 (T,), uniform random e2 (T,), E) for B7, numpy:
+    the ids of ``triplet_case_inputs``, dyadic values."""
+    _, _, e1, e2, e = triplet_case_inputs(case, 1)
+    rng = np.random.default_rng(80 + SORTED_CASES.index(case))
+    return dyadic(rng, (f, e1.shape[0])), e1, e2, e
+
+
 def check_sorted_index_cases() -> None:
-    """B1, B2, B3, B4 and B5 against their plain versions on every case of
-    ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) (B1-B3; B2
-    and B3 also with the operand as an offset view, whose pointer is not
-    16-byte aligned) and LN = 1, 9, 16 (B4, B5): equal to them (dyadic data:
-    every sum is exact in any order), and two kernel calls bitwise equal."""
+    """B1, B2, B3, B4, B5 and B7 against their plain versions on every case
+    of ``SORTED_CASES``, at (l_max, n_max) = (1, 1), (3, 3), (4, 4) (B1-B3;
+    B2 and B3 also with the operand as an offset view, whose pointer is not
+    16-byte aligned), LN = 1, 9, 16 (B4, B5) and F = 4 (B7, by the sorted ids
+    with their offsets and with their order, and by uniform random ids with
+    their order, the values as given and as an offset view): equal to them
+    (dyadic data: every sum is exact in any order), and two kernel calls
+    bitwise equal."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
     from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+    from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+    from torch_m3gnet_tpu_torch.ops import windowed_take as wt
 
     def run(label, kernel, plain):
         with torch.no_grad():
@@ -309,6 +331,16 @@ def check_sorted_index_cases() -> None:
             run(f"backward_pair {tag}",
                 lambda: ft.backward_pair(tb, tgt, tg, te1, te2, e, order),
                 lambda: ft.backward_pair_plain(tb, tgt, tg, te1, te2, e))
+        vals, e1, e2, e = scatter_case_inputs(case)
+        tv, te1, te2 = (torch.as_tensor(x, device="cuda") for x in (vals, e1, e2))
+        for index, tidx, owners in (("e1", te1, (None, ss.sorted_segment_offsets(te1, e))),
+                                    ("e1 (its order)", te1, ft.triplet_e2_order(te1, e)),
+                                    ("e2", te2, ft.triplet_e2_order(te2, e))):
+            # the values as given and as an unaligned offset view
+            for label, operand in (("", tv), (", offset vals", offset_view(tv))):
+                run(f"windowed_scatter_fm {case} by {index}, T = {e1.shape[0]}, E = {e}{label}",
+                    lambda: wt.windowed_scatter_fm(operand, tidx, e, owners),
+                    lambda: wt.scatter_fm_plain(operand, tidx, e))
     print("  every case: equal to the plain version, two calls bitwise equal")
 
 
@@ -389,7 +421,9 @@ def expected_launches(mode: str, nb: int, train: bool) -> dict[str, int]:
 
 def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
     """B4-B7 against their plain versions on the batch's real triplet_e1
-    (sorted) and triplet_e2 (unsorted), forward and VJP."""
+    (sorted) and triplet_e2 (unsorted), forward and VJP, with the batch's
+    owners of each (B7 also without them, so that its wrapper builds the
+    stable order: bitwise equal to a call given that order)."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
@@ -398,6 +432,7 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
     basis, gate, g, data, vals = triplet_inputs(gbatch, ln, f)
     e1, e2, e = gbatch.triplet_e1, gbatch.triplet_e2, gbatch.num_edges
     order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
+    owners = {"e1": (None, gbatch.triplet_e1_offsets), "e2": order}
     errs = {}
     with torch.no_grad():
         errs["fused_triplet_gate_sum"] = check(
@@ -413,11 +448,23 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
         print("  backward_pair: two calls bitwise equal")
         take_errs, scatter_errs = [], []
         for label, idx in (("e1", e1), ("e2", e2)):
-            take_errs.append(check(f"windowed_take_fm ({label})", wt.windowed_take_fm(data, idx),
+            take_errs.append(check(f"windowed_take_fm ({label})",
+                                   wt.windowed_take_fm(data, idx, owners[label]),
                                    wt.take_fm_plain(data, idx), FWD_TOL))
-            scatter_errs.append(check(
-                f"windowed_scatter_fm ({label})", wt.windowed_scatter_fm(vals, idx, e),
-                wt.scatter_fm_plain(vals, idx, e), FWD_TOL))
+            got = wt.windowed_scatter_fm(vals, idx, e, owners[label])
+            scatter_errs.append(check(f"windowed_scatter_fm ({label})", got,
+                                      wt.scatter_fm_plain(vals, idx, e), FWD_TOL))
+            again = wt.windowed_scatter_fm(vals, idx, e, owners[label])
+            # without owners the wrapper builds the stable order (by e1 the
+            # identity: the ordered path, in other blocks than by offsets)
+            own = wt.windowed_scatter_fm(vals, idx, e)
+            by_order = wt.windowed_scatter_fm(vals, idx, e, ft.triplet_e2_order(idx, e))
+            check(f"windowed_scatter_fm ({label}, its own owners)", own,
+                  wt.scatter_fm_plain(vals, idx, e), FWD_TOL)
+            if not (torch.equal(got, again) and torch.equal(own, by_order)):
+                raise AssertionError(f"windowed_scatter_fm ({label}): calls differ")
+        print("  windowed_scatter_fm: two calls bitwise equal; a call that builds its own "
+              "owners equal to one given the stable order")
         errs["windowed_take_fm"], errs["windowed_scatter_fm"] = max(take_errs), max(scatter_errs)
 
     def fused_grads(fused):
@@ -431,11 +478,11 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
 
     def take_grad(take):
         d = data.clone().requires_grad_(True)
-        y = torch.sin(take(d, e1)) * take(d, e2)
+        y = torch.sin(take(d, e1, owners["e1"])) * take(d, e2, owners["e2"])
         return torch.autograd.grad(y.sum(), d)[0]
 
-    check("take VJP (windowed_scatter_fm kernel, e1 and e2)",
-          take_grad(wt.windowed_take_fm), take_grad(wt.take_fm_plain), VJP_TOL)
+    check("take VJP (windowed_scatter_fm kernel, e1 and e2)", take_grad(wt.windowed_take_fm),
+          take_grad(lambda d, idx, _owners: wt.take_fm_plain(d, idx)), VJP_TOL)
     return errs
 
 
@@ -826,7 +873,8 @@ def time_batch_index(gbatch, flush) -> dict:
         mode: sum(row[n] for n in index if n in parts)
         for mode, index in (("factorized", ("edge_src_offsets",)),
                             ("gather", ("edge_src_offsets", "triplet_e1_offsets")),
-                            ("fused", ("edge_src_offsets", "triplet_e2_order")))
+                            ("fused", ("edge_src_offsets", "triplet_e1_offsets",
+                                       "triplet_e2_order")))
     }
     print(json.dumps({"batch_index_us": row}))
     return row
@@ -848,6 +896,7 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     e, t = gbatch.num_edges, gbatch.num_triplets
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
     order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
+    e1_owners = (None, gbatch.triplet_e1_offsets)
     m, ln, mn = l_max * l_max, l_max * n_max, l_max * l_max * n_max
     sh, gm, a = stage_inputs(num_nodes, e, l_max, n_max, src.device)
     f = 4
@@ -859,8 +908,9 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     wt_src = "torch_m3gnet_tpu_torch/csrc/windowed_take.cu"
 
     def both(fn):
-        """The path calls the take and the scatter once with e1, once with e2."""
-        return [lambda: fn(e1), lambda: fn(e2)]
+        """The path calls the take and the scatter once with e1, once with e2,
+        each with its owners (the e1 offsets, the e2 order)."""
+        return [lambda: fn(e1, e1_owners), lambda: fn(e2, order)]
 
     specs = {
         # name: (source, kernel calls, plain calls, library calls or None,
@@ -896,16 +946,16 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
             "torch_m3gnet_tpu/ops/pallas_fused_triplet.py:513",
         ),
         "windowed_take_fm": (
-            wt_src, both(lambda idx: wt.windowed_take_fm(data, idx)),
-            both(lambda idx: wt.take_fm_plain(data, idx)),
-            both(lambda idx: torch.index_select(data, 1, idx)),
+            wt_src, both(lambda idx, owners: wt.windowed_take_fm(data, idx, owners)),
+            both(lambda idx, _: wt.take_fm_plain(data, idx)),
+            both(lambda idx, _: torch.index_select(data, 1, idx)),
             4 * f * e + idx_bytes + 4 * f * t, 0,
             "torch_m3gnet_tpu/ops/pallas_windowed_take.py:166",
         ),
         "windowed_scatter_fm": (
-            wt_src, both(lambda idx: wt.windowed_scatter_fm(vals, idx, e)),
-            both(lambda idx: wt.scatter_fm_plain(vals, idx, e)),
-            both(lambda idx: torch.zeros((f, e), device=vals.device).index_add_(1, idx, vals)),
+            wt_src, both(lambda idx, owners: wt.windowed_scatter_fm(vals, idx, e, owners)),
+            both(lambda idx, _: wt.scatter_fm_plain(vals, idx, e)),
+            both(lambda idx, _: torch.zeros((f, e), device=vals.device).index_add_(1, idx, vals)),
             4 * f * t + idx_bytes + 4 * f * e, f * t,
             "torch_m3gnet_tpu/ops/pallas_windowed_take.py:240",
         ),
@@ -914,15 +964,17 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     def mean_ms(fns):
         return None if fns is None else statistics.mean(time_device(fn, flush) for fn in fns)
 
-    def mean_l2(fns):
-        times = [l2_times(fn, flush) for fn in fns]
-        return {k: statistics.mean(x[k] for x in times) for k in times[0]}
+    def l2_by_call(fns):
+        """Each call's L2 times and kernel split, and their means."""
+        calls = [dict(l2_times(fn, flush), parts_us=kernel_parts(fn, flush)) for fn in fns]
+        mean = {k: statistics.mean(c[k] for c in calls) for k in ("ms", "cold_dirty_us", "warm_us")}
+        return mean, calls
 
     rows = [dict(ss_rows[0], launches=launches["sorted_segment_sum"],
                  max_abs_err=errs["sorted_segment_sum"])]
     with torch.no_grad():
         for name, (source, kernel, plain, library, nbytes, flops, replaces) in specs.items():
-            l2 = mean_l2(kernel)
+            l2, calls = l2_by_call(kernel)
             plain_ms, library_ms = mean_ms(plain), mean_ms(library)
             bytes_ms = nbytes / bw * 1e3
             ops_ms = flops / F32_FLOPS * 1e3
@@ -941,10 +993,20 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
                 "cold_dirty_us": l2["cold_dirty_us"],
                 "warm_us": l2["warm_us"],
                 "bytes": nbytes,
-                "parts_us": kernel_parts(kernel[0], flush),
+                "parts_us": calls[0]["parts_us"],
             })
+            if len(calls) > 1:  # B6, B7: the e1 and the e2 call apart
+                by_call = dict(zip(("e1", "e2"), calls))
+                rows[-1]["parts_us"] = {k: c.pop("parts_us") for k, c in by_call.items()}
+                rows[-1]["per_call"] = by_call
             if name == "backward_pair":  # the e2 order's own reads: order, offsets, e1 again
                 rows[-1]["design_bytes"] = nbytes + 4 * (2 * t + e + 1)
+            if name == "windowed_scatter_fm":
+                # vals, out and the offsets by e1; the order too by e2
+                own = 4 * f * t + 4 * f * e + 4 * (e + 1)
+                rows[-1]["design_bytes"] = {"e1": own, "e2": own + idx_bytes}
+                rows[-1]["design_bound_us"] = {
+                    k: v / bw * 1e6 for k, v in rows[-1]["design_bytes"].items()}
             lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
             print(f"  {name}: {l2['ms'] * 1e3:.2f} us clean, {l2['cold_dirty_us']:.2f} dirty, "
                   f"{l2['warm_us']:.2f} warm (plain {plain_ms * 1e3:.1f} us{lib}, "

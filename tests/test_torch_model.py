@@ -211,7 +211,7 @@ def test_each_mode_builds_only_its_batch_index(al_fcc, monkeypatch, mode):
     """A host batch through the potential gets only the parts of the
     kernel index that its mode reads: the e2 order (a device sort of every
     triplet) in the fused mode alone, in one build for the whole forward
-    and backward; the triplet_e1 offsets in the gather mode alone."""
+    and backward; the triplet_e1 offsets in the gather and fused modes."""
     from torch_m3gnet_tpu_torch.data import graph
     from torch_m3gnet_tpu_torch.ops import fused_triplet, sorted_segment
 
@@ -233,12 +233,13 @@ def test_each_mode_builds_only_its_batch_index(al_fcc, monkeypatch, mode):
     pot(batch).forces.sum()
     want = {"factorized": ("edge_src_offsets",),
             "gather": ("edge_src_offsets", "triplet_e1_offsets"),
-            "fused": ("edge_src_offsets", "triplet_e2_order", "triplet_e2_offsets")}[mode]
+            "fused": ("edge_src_offsets", "triplet_e1_offsets", "triplet_e2_order",
+                      "triplet_e2_offsets")}[mode]
     assert pot.model.batch_index == want
     assert set(want) <= set(graph.BATCH_INDEX_FIELDS)
     assert calls["e2_order"] == (mode == "fused")
     n, e = batch.num_nodes, batch.num_edges
-    assert calls["offsets"] == [n] + ([e] if mode == "gather" else [])
+    assert calls["offsets"] == [n] + ([e] if mode in ("gather", "fused") else [])
 
 
 def test_auto_mode_resolves_to_factorized():

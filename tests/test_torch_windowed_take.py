@@ -6,7 +6,10 @@ On the CPU the port's autograd Functions run the plain versions of the CUDA
 kernels; chip_smoke.py holds the kernels against those on the card. The
 indices are the real triplet_e1 (sorted) and triplet_e2 (unsorted) of a
 packed batch, a synthetic e2 whose tiles span many windows, and a padded
-tail.
+tail; and the sorted-index cases of chip_smoke.SORTED_CASES, with uniform
+random e2. The scatter kernel sums each edge's run of its index's owners
+(the stable order and its offsets, or the offsets of a sorted index), as
+_scatter_by_owners does here.
 """
 
 import jax
@@ -15,11 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_m3gnet_tpu.data.graph import pack_structures as jax_pack
 from torch_m3gnet_tpu.data.structure import Structure as JaxStructure
 from torch_m3gnet_tpu.ops.pallas_windowed_take import windowed_scatter_fm as jscatter
 from torch_m3gnet_tpu.ops.pallas_windowed_take import windowed_take_fm as jtake
 from torch_m3gnet_tpu_torch.ops import windowed_take as wt
+from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
 
 # Pallas interpret mode contracts one-hot matrices in f32 on the CPU; the
 # plain versions gather exactly and add in another order: f32 sums of up to
@@ -75,6 +81,26 @@ def _index(case):
 CASES = ["e1-sorted", "e2-unsorted", "synthetic-e2", "padding-tail"]
 
 
+def _owners(idx: torch.Tensor, num_edges: int) -> list:
+    """The owners a caller may pass for ``idx``: its stable order with the
+    order's offsets, and, for a sorted idx, its offsets alone (the identity
+    order)."""
+    owners = [triplet_e2_order(idx, num_edges)]
+    if bool((idx[1:] >= idx[:-1]).all()):
+        owners.append((None, sorted_segment_offsets(idx, num_edges)))
+    return owners
+
+
+def _scatter_by_owners(vals, order, offsets):
+    """The scatter as the CUDA kernel sums it: for edge e, vals[:, order[i]]
+    over i in [offsets[e], offsets[e + 1]), in that order (order None: the
+    identity); here an f64 cumulative sum read at the run ends."""
+    v = vals.double() if order is None else vals.double()[:, order.long()]
+    cs = torch.nn.functional.pad(torch.cumsum(v, 1), (1, 0))
+    off = offsets.long()
+    return cs[:, off[1:]] - cs[:, off[:-1]]
+
+
 @pytest.fixture
 def interpret():
     from jax.experimental.pallas import tpu as pltpu
@@ -126,6 +152,7 @@ def test_grad_of_grad_matches_pallas(interpret):
     e1, _, e = real_indices()
     data = np.random.default_rng(7).standard_normal((4, e)).astype(np.float32)
     jidx, tidx = jnp.asarray(e1), torch.as_tensor(e1)
+    owners = (None, sorted_segment_offsets(tidx, e))  # as the model passes e1's
 
     def jloss(d):
         g = jax.grad(lambda x: jnp.sum(jnp.sin(jtake(x, jidx)) * jtake(x, jidx)))(d)
@@ -133,7 +160,7 @@ def test_grad_of_grad_matches_pallas(interpret):
 
     want = jax.grad(jloss)(jnp.asarray(data))
     x = torch.tensor(data, requires_grad=True)
-    y = wt.windowed_take_fm(x, tidx)
+    y = wt.windowed_take_fm(x, tidx, owners)
     (g,) = torch.autograd.grad((torch.sin(y) * y).sum(), x, create_graph=True)
     (got,) = torch.autograd.grad((g * g).sum(), x)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, rtol=5e-4)
@@ -142,16 +169,19 @@ def test_grad_of_grad_matches_pallas(interpret):
 @pytest.mark.parametrize("op", ["take", "scatter"])
 def test_functions_close_under_differentiation(op):
     """gradcheck and gradgradcheck at f64 on an unsorted index with repeats
-    and an edge that no index hits."""
+    and an edge that no index hits, with the index's owners (which each
+    Function hands to its VJP), equal to the call without them."""
     idx = torch.tensor([3, 0, 3, 1, 4, 4, 0, 3], dtype=torch.int32)
+    owners = triplet_e2_order(idx, 6)
     rng = np.random.default_rng(4)
     if op == "take":
         x = torch.tensor(rng.standard_normal((3, 6)), requires_grad=True)
-        fn = lambda d: wt.windowed_take_fm(d, idx)  # noqa: E731
+        fn = lambda d, o=owners: wt.windowed_take_fm(d, idx, o)  # noqa: E731
     else:
         x = torch.tensor(rng.standard_normal((3, 8)), requires_grad=True)
-        fn = lambda v: wt.windowed_scatter_fm(v, idx, 6)  # noqa: E731
+        fn = lambda v, o=owners: wt.windowed_scatter_fm(v, idx, 6, o)  # noqa: E731
     assert fn(x).dtype == torch.float64
+    assert torch.equal(fn(x), fn(x, None))
     assert torch.autograd.gradcheck(fn, (x,))
     assert torch.autograd.gradgradcheck(fn, (x,))
 
@@ -165,5 +195,66 @@ def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
         wt.windowed_take_fm(torch.zeros(2, 3), idx[None])
     with pytest.raises(ValueError, match="data has shape"):
         wt.windowed_take_fm(torch.zeros(3), idx)
+    order, offsets = triplet_e2_order(idx, 3)
+    with pytest.raises(ValueError, match="order has shape"):
+        wt.windowed_scatter_fm(torch.zeros(2, 3), idx, 3, (order[:2], offsets))
+    with pytest.raises(ValueError, match="offsets has shape"):
+        wt.windowed_take_fm(torch.zeros(2, 3), idx, (None, offsets[:3]))
+    wt.windowed_scatter_fm(torch.ones(2, 3), idx, 3, (order, offsets))
     wt.windowed_scatter_fm(wt.windowed_take_fm(torch.ones(2, 3), idx), idx, 3)
     assert wt.LAUNCHES == {"windowed_take_fm": 0, "windowed_scatter_fm": 0}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scatter_by_owners_matches_pallas(interpret, case):
+    """The scatter along each owners of the index (the stable order, and
+    the offsets alone where the index is sorted), as the CUDA kernel sums
+    it and through the Function, against the Pallas kernel; and the take's
+    VJP with the same owners against jax.grad. TOL as above."""
+    idx, e = _index(case)
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal((4, idx.shape[0])).astype(np.float32)
+    w = rng.standard_normal((4, idx.shape[0])).astype(np.float32)
+    data = rng.standard_normal((4, e)).astype(np.float32)
+    jidx, tidx = jnp.asarray(idx), torch.as_tensor(idx)
+    want = np.asarray(jscatter(jnp.asarray(vals), jidx, e))
+    want_dd = np.asarray(jax.grad(lambda d: jnp.sum(jtake(d, jidx) * w))(jnp.asarray(data)))
+    owners = _owners(tidx, e)
+    assert len(owners) == (1 + (case == "e1-sorted"))
+    for order, offsets in owners:
+        by_owners = _scatter_by_owners(torch.as_tensor(vals), order, offsets)
+        got = wt.windowed_scatter_fm(torch.as_tensor(vals), tidx, e, (order, offsets))
+        np.testing.assert_allclose(by_owners.numpy(), want, **TOL)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        x = torch.tensor(data, requires_grad=True)
+        y = wt.windowed_take_fm(x, tidx, (order, offsets))
+        (dd,) = torch.autograd.grad((y * torch.as_tensor(w)).sum(), x)
+        np.testing.assert_allclose(dd.numpy(), want_dd, **TOL)
+
+
+@pytest.mark.parametrize("index", ["e1", "e1-order", "e2"])
+@pytest.mark.parametrize("case", chip_smoke.SORTED_CASES)
+def test_scatter_sorted_index_cases(interpret, case, index):
+    """The scatter on the sorted-index cases that chip_smoke.py holds the
+    kernel to (one edge owning every entry, a 20,480-entry run, runs across
+    chunk boundaries, a ragged edge count, long stretches of edges without
+    entries), by the sorted ids with their offsets, by the same ids with
+    their (identity) order, and by uniform random ids with their order: the
+    Pallas kernel, the sum by owners, the Function and the plain version
+    all equal (dyadic data, every f32 sum exact in any order), and zeros on
+    the edges that no id hits."""
+    vals, e1, e2, e = chip_smoke.scatter_case_inputs(case)
+    idx = e2 if index == "e2" else e1
+    tidx, tv = torch.as_tensor(idx), torch.as_tensor(vals)
+    owners = ((None, sorted_segment_offsets(tidx, e)) if index == "e1"
+              else triplet_e2_order(tidx, e))
+    if index == "e1-order":  # a stable sort of sorted ids: the identity
+        assert torch.equal(owners[0], torch.arange(idx.shape[0], dtype=torch.int32))
+    want = np.asarray(jscatter(jnp.asarray(vals), jnp.asarray(idx), e))
+    for got in (_scatter_by_owners(tv, *owners), wt.windowed_scatter_fm(tv, tidx, e, owners),
+                wt.scatter_fm_plain(tv, tidx, e)):
+        assert tuple(got.shape) == (4, e)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    empty = np.setdiff1d(np.arange(e), idx)
+    assert not want[:, empty].any()
+    assert empty.size or index == "e2"  # every sorted case leaves edges empty

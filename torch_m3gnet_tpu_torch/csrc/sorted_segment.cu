@@ -28,10 +28,11 @@
 //      the same path):
 //      - segment_sum_tiled<R>: one block per (R rows, sb consecutive
 //        segments), one thread per segment summing its run in all R rows
-//        (R <= 4).
+//        (R <= 4); its body, owner_sum_tiled (owner_sum.cuh), is shared
+//        with windowed_scatter_fm (B7).
 //        The segments' runs are one contiguous span of each row, which the
-//        block streams through two shared-memory buffers of kStage floats
-//        (R rows x kStage / R entries) with 16-byte cp.async copies where
+//        block streams through two shared-memory buffers of kOwnerStage
+//        floats (R rows x kOwnerStage / R entries) with 16-byte cp.async copies where
 //        the rows and the pointer are 16-byte aligned (scalar copies
 //        otherwise): chunk k + 1 is in flight while chunk k is summed, and
 //        no registers hold the loads. Each thread adds its run's part of a
@@ -65,101 +66,25 @@
 
 #include <cstdint>
 
+#include "owner_sum.cuh"
 #include "segment_offsets.cuh"
 
 namespace {
 
 constexpr int kBlock = 256;      // threads of segment_sum_block; most of segment_sum_tiled
-constexpr int kStage = 4096;     // floats per staging buffer of segment_sum_tiled (16 KB)
 constexpr int kLongRun = 256;    // mean run above which a block owns a run
 constexpr int kMaxRows = 4;       // rows per tiled block at most
 constexpr int kFullBlocks = 528;  // four blocks per SM of an H100 SXM (132 SMs)
 constexpr int kMinBlocks = 132;   // one block per SM
 
 // Block (blockIdx.x from the last segments down, blockIdx.y) owns segments
-// [s0, s0 + blockDim.x) of rows [f0, f0 + R), one thread per segment.
+// [s0, s0 + blockDim.x) of rows [f0, f0 + R), one thread per segment
+// (owner_sum.cuh).
 template <int R>
 __global__ void __launch_bounds__(kBlock)
 segment_sum_tiled(const float* __restrict__ data, const int* __restrict__ offsets,
                   float* __restrict__ out, int rows, int m_len, int num_segments, bool vec) {
-  // Entries per chunk: a multiple of 32, so that every staged row starts
-  // 16-byte aligned.
-  constexpr int kChunk = (kStage / R) & ~31;
-  constexpr int kQuads = kChunk / 4;
-  __shared__ __align__(16) float buf[2][R * kChunk];
-  const int sb = blockDim.x;
-  const int s0 = (gridDim.x - 1 - blockIdx.x) * sb;
-  const int f0 = blockIdx.y * R;
-  const int nr = min(R, rows - f0);
-  const int s = s0 + threadIdx.x;
-  const bool live = s < num_segments;
-  const int span_begin = __ldg(offsets + s0);
-  const int span_end = __ldg(offsets + min(s0 + sb, num_segments));
-  const int begin = live ? __ldg(offsets + s) : 0;
-  const int end = live ? __ldg(offsets + s + 1) : 0;
-  const float* __restrict__ base = data + (size_t)f0 * m_len;
-  // With vec, chunks start on a multiple of 4 entries, so that every staged
-  // quad is one aligned 16-byte copy; the entries outside the span that
-  // this pulls in are never summed.
-  const int first = vec ? (span_begin & ~3) : span_begin;
-  const int chunks = span_end > first ? (span_end - first + kChunk - 1) / kChunk : 0;
-
-  // Issues chunk k's copies into buffer k & 1 as one cp.async group. Item i
-  // is row i / kQuads, quad i % kQuads; without vec, 4 single words.
-  auto stage = [&](int k) {
-    const int c0 = first + k * kChunk;
-    const int c1 = min(c0 + kChunk, span_end);
-    const int width = vec ? (c1 - c0 + 3) & ~3 : c1 - c0;
-    float* dst = buf[k & 1];
-    for (int i = threadIdx.x; i < R * kQuads; i += sb) {
-      const int r = i / kQuads, q = i % kQuads;
-      if (r >= nr) break;
-      const float* src = base + (size_t)r * m_len + c0 + 4 * q;
-      float* to = dst + r * kChunk + 4 * q;
-      if (vec) {
-        if (4 * q < width) cp_async16(to, src);
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (4 * q + u < width) cp_async4(to + u, src + u);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  if (chunks > 0) stage(0);
-  for (int k = 0; k < chunks; ++k) {
-    if (k + 1 < chunks) {
-      stage(k + 1);  // its buffer was last read before the previous barrier
-      cp_async_wait_group<1>();
-    } else {
-      cp_async_wait_group<0>();
-    }
-    __syncthreads();  // chunk k is in shared memory
-    const int c0 = first + k * kChunk;
-    const int lo = max(begin, c0) - c0, hi = min(end, min(c0 + kChunk, span_end)) - c0;
-    if (lo < hi) {
-      const float* src = buf[k & 1];
-      float part[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) part[r] = 0.f;
-      for (int i = lo; i < hi; ++i) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) part[r] += src[r * kChunk + i];
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] += part[r];
-    }
-    __syncthreads();  // chunk k is consumed
-  }
-  if (live) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < nr) out[(size_t)(f0 + r) * num_segments + s] = acc[r];
-  }
+  owner_sum_tiled<R, false>(data, nullptr, offsets, out, rows, m_len, num_segments, vec);
 }
 
 __global__ void __launch_bounds__(kBlock)

@@ -16,16 +16,37 @@
 // computes nothing; the scatter does F*T adds on the same bytes. At the
 // bench point (F = 4, E = 147,456, T = 1,057,792) that is 23.5 MB each.
 //
-// What the design does about it: one thread per index t, looping over the
-// F rows, so that a warp's loads of idx and vals and its stores of out are
-// 128-byte coalesced along t. The data[:, idx[t]] reads and the scattered
-// adds hit a short window of columns (the triplets of one source node touch
-// only that node's edges), so L1/L2 serve them and device memory sees each
-// column about once.
-//   - take: plain loads and stores; deterministic.
-//   - scatter: f32 atomicAdd into an output the entry point zeroes first
-//     (cudaMemsetAsync on the same stream). The atomics resolve in L2; their
-//     order, and so the last bits of each sum, change from run to run.
+// What the designs do about it:
+//   - take: one thread per index t, looping over the F rows, so that a
+//     warp's loads of idx and stores of out are 128-byte coalesced along t;
+//     the data[:, idx[t]] reads hit a short window of columns (the triplets
+//     of one source node touch only that node's edges), so L1/L2 serve them
+//     and device memory sees each column about once.
+//   - scatter: a sorted-owner sum (owner_sum_tiled, owner_sum.cuh, shared
+//     with sorted_segment_sum): it takes the owners of idx, offsets (E + 1,)
+//     and, for an unsorted idx, the stable order that sorts it (the batch's
+//     triplet_e1 offsets and e2 order, built once per batch), and computes
+//         out[:, e] = sum over i in [offsets[e], offsets[e + 1]) of
+//                     vals[:, order[i]]   (vals[:, i] without an order)
+//     in i order. A block owns the edges of all four rows, one thread an
+//     edge. By e1 (256 edges a block) it streams its contiguous span of vals
+//     through shared memory (cp.async, double buffered), as
+//     sorted_segment_sum does. By e2 (128 edges a block) it stages its span
+//     of the order the same way and gathers the four values of each staged
+//     triplet from L1/L2 into shared memory, eight triplets a thread a
+//     pass: both edges of a triplet share their source node, so a block's
+//     e2 triplets lie in the triplet range of its few source nodes. Each edge's thread then sums
+//     its run and writes its outputs once, empty edges 0: no memset, no
+//     atomics, and the same bits on every call. It reads vals, offsets (and
+//     the order) once and writes out once: 19.9 MB by e1 and 24.1 MB by e2
+//     at the bench point. On an H100 (tools/windowed_scatter_designs.py;
+//     PERF.md) the e2 call is fastest with 128-edge blocks and eight
+//     triplets a thread a pass: a block's span (~900 triplets) then mostly
+//     fits one chunk, and the whole grid stays resident. The e1 call is
+//     fastest at 256. Gathering each owner's run by depth (coalesced, but
+//     one load latency a step), owners that walk their own runs and a staged
+//     window of vals (in both, one thread walks the padded triplets' run of
+//     ~270 on edge 0) were slower.
 // The TPU version's one-hot MXU contractions over windows of 256 columns,
 // its bf16 hi/lo split and its VMEM residency have no counterpart here.
 //
@@ -35,9 +56,15 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "owner_sum.cuh"
+
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kScatterRows = 4;      // rows a scatter block owns: the four of the geometry
+constexpr int kScatterEdgesE2 = 128;  // edges a scatter block owns by an order (kBlock without)
 
 __global__ void __launch_bounds__(kBlock)
 windowed_take_kernel(const float* __restrict__ data, const int* __restrict__ idx,
@@ -49,17 +76,21 @@ windowed_take_kernel(const float* __restrict__ data, const int* __restrict__ idx
     out[(size_t)f * num_idx + t] = __ldg(data + (size_t)f * num_cols + c);
 }
 
-__global__ void __launch_bounds__(kBlock)
-windowed_scatter_kernel(const float* __restrict__ vals, const int* __restrict__ idx,
-                        float* __restrict__ out, int rows, int num_cols, int num_idx) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num_idx) return;
-  const int c = __ldg(idx + t);
-  for (int f = 0; f < rows; ++f)
-    atomicAdd(out + (size_t)f * num_cols + c, __ldg(vals + (size_t)f * num_idx + t));
+// Block (blockIdx.x from the last edges down, blockIdx.y) owns edges
+// [e0, e0 + blockDim.x) of rows [f0, f0 + kScatterRows), one thread per edge.
+// The bound is the block size of the call.
+template <bool Ordered>
+__global__ void __launch_bounds__(Ordered ? kScatterEdgesE2 : kBlock)
+windowed_scatter_owned(const float* __restrict__ vals, const int* __restrict__ order,
+                       const int* __restrict__ offsets, float* __restrict__ out, int rows,
+                       int num_cols, int num_idx, bool vec) {
+  owner_sum_tiled<kScatterRows, Ordered>(vals, order, offsets, out, rows, num_idx, num_cols,
+                                         vec);
 }
 
 int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -74,16 +105,30 @@ extern "C" int m3g_windowed_take(const void* data, const void* idx, void* out, i
   return (int)cudaGetLastError();
 }
 
-// scatter(vals (rows, num_idx), idx (num_idx,)) -> out (rows, num_cols),
-// zeroed here before the adds.
-extern "C" int m3g_windowed_scatter(const void* vals, const void* idx, void* out, int rows,
-                                    int num_cols, int num_idx, void* stream) {
+// scatter(vals (rows, num_idx)) -> out (rows, num_cols) by the owners of
+// idx: offsets (num_cols + 1,) and order (num_idx,), or order = nullptr
+// for a sorted idx. Every output element is written, empty edges with 0.
+extern "C" int m3g_windowed_scatter(const void* vals, const void* order, const void* offsets,
+                                    void* out, int rows, int num_cols, int num_idx,
+                                    void* stream) {
+  if (rows <= 0 || num_cols <= 0 || num_idx < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)rows * num_cols, s);
-  if (err != cudaSuccess) return (int)err;
-  if (num_idx > 0)
-    windowed_scatter_kernel<<<grid_for(num_idx), kBlock, 0, s>>>(
-        static_cast<const float*>(vals), static_cast<const int*>(idx),
-        static_cast<float*>(out), rows, num_cols, num_idx);
+  const float* v = static_cast<const float*>(vals);
+  const int* ord = static_cast<const int*>(order);
+  const int* off = static_cast<const int*>(offsets);
+  float* o = static_cast<float*>(out);
+  const int row_blocks = (rows + kScatterRows - 1) / kScatterRows;
+  // 16-byte staging of the span: of the order where there is one, else of
+  // vals, where the pointer is aligned and the span's last quad ends inside
+  const bool vec = num_idx % 4 == 0 && aligned16(ord != nullptr ? (const void*)ord : vals);
+  if (ord != nullptr) {
+    const dim3 grid((num_cols + kScatterEdgesE2 - 1) / kScatterEdgesE2, row_blocks);
+    windowed_scatter_owned<true><<<grid, kScatterEdgesE2, 0, s>>>(v, ord, off, o, rows, num_cols,
+                                                                 num_idx, vec);
+  } else {
+    const dim3 grid(grid_for(num_cols), row_blocks);
+    windowed_scatter_owned<false><<<grid, kBlock, 0, s>>>(v, nullptr, off, o, rows, num_cols,
+                                                         num_idx, vec);
+  }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ from torch_m3gnet_tpu_torch.ops.basis import (
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
 from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum, triplet_e2_order
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
-from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_sum_fm
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets, sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
 
 THREEBODY_MODES = ("factorized", "fused", "gather")
@@ -147,9 +147,9 @@ class M3GNet(nn.Module):
         """The parts of the per-batch kernel index (``data.to_torch``) that
         this mode reads: the ``edge_src`` offsets in every mode (the node
         aggregation and the forces), the ``triplet_e1`` offsets in the
-        gather mode, the e2 order in the fused mode."""
+        gather and fused modes, the e2 order in the fused mode."""
         extra = {"gather": ("triplet_e1_offsets",),
-                 "fused": ("triplet_e2_order", "triplet_e2_offsets")}
+                 "fused": ("triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets")}
         return ("edge_src_offsets",) + extra.get(self.threebody_mode, ())
 
     def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor):
@@ -243,11 +243,24 @@ class M3GNet(nn.Module):
         rc3 = self.threebody_cutoff / self.length_scale
         e1, e2, dst = graph.triplet_e1, graph.triplet_e2, graph.edge_dst
         fused = self.threebody_mode == "fused"
-        take = windowed_take_fm if fused else take_fm
 
         # T-scale geometry from the packed [x, y, z, |r|] rows of each edge.
         geom_fm = torch.cat([r_fm, dist[None, :]], 0)  # (4, E)
-        g1, g2 = take(geom_fm, e1), take(geom_fm, e2)  # (4, T)
+        if fused:
+            # The batch's owners of e1 (its offsets; e1 is sorted) and of e2
+            # (the e2 order), built here for a batch that lacks them: the
+            # takes' VJPs sum along them, and so does the backward kernel's
+            # sum by e2.
+            e1_offsets = graph.triplet_e1_offsets
+            if e1_offsets is None:
+                e1_offsets = sorted_segment_offsets(e1, num_edges)
+            e2_order = (graph.triplet_e2_order, graph.triplet_e2_offsets)
+            if e2_order[0] is None or e2_order[1] is None:
+                e2_order = triplet_e2_order(e2, num_edges)
+            g1 = windowed_take_fm(geom_fm, e1, (None, e1_offsets))  # (4, T)
+            g2 = windowed_take_fm(geom_fm, e2, e2_order)
+        else:
+            g1, g2 = take_fm(geom_fm, e1), take_fm(geom_fm, e2)
         rij, rik = g1[3], g2[3]  # padded triplets: rij = rc > 0 (e1 is a padded edge)
         cos_jik = torch.clamp((g1[:3] * g2[:3]).sum(0) / (rij * rik), -1.0, 1.0)
         fc = cutoff_poly(rij, rc3) * cutoff_poly(rik, rc3)  # (T,)
@@ -260,12 +273,8 @@ class M3GNet(nn.Module):
 
         if fused:
             # gate pre-gathered node -> edge (E-scale); the kernel's T-scale
-            # reads of it by e2 are then window-local. The batch's e2 order
-            # goes with it, for the backward kernel's sum by e2 (built here
-            # for a batch that lacks it).
-            e2_order = (graph.triplet_e2_order, graph.triplet_e2_offsets)
-            if e2_order[0] is None or e2_order[1] is None:
-                e2_order = triplet_e2_order(e2, num_edges)
+            # reads of it by e2 are then window-local. The e2 order goes with
+            # it, for the backward kernel's sum by e2.
             return lambda gate_fm: fused_triplet_gate_sum(
                 basis_fm, take_fm(gate_fm, dst), e1, e2, num_edges, e2_order
             )

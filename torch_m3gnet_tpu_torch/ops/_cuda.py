@@ -33,9 +33,10 @@ _ENTRIES = {
     # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, stream)
     "m3g_r1_gather": [_P] * 4 + [_I] * 4 + [_P],
     "m3g_r2_gather": [_P] * 4 + [_I] * 4 + [_P],
-    # (data or vals, idx, out, rows, num_cols, num_idx, stream)
+    # (data, idx, out, rows, num_cols, num_idx, stream)
     "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
-    "m3g_windowed_scatter": [_P] * 3 + [_I] * 3 + [_P],
+    # (vals, order or NULL, offsets, out, rows, num_cols, num_idx, stream)
+    "m3g_windowed_scatter": [_P] * 4 + [_I] * 3 + [_P],
     # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip, stream)
     "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 3 + [_P],
     # (basis, gate, g, e1, e2, e2 order, e2 offsets, d_basis, d_gate, rows,

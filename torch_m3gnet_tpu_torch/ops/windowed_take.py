@@ -9,13 +9,23 @@ three-body mode reads each triplet's two edges from the feature-major
     windowed_scatter_fm(vals (F, T), idx (T,), E)   -> out[:, e] = sum_{idx[t]=e} vals[:, t]
 
 ``idx`` is int32 in [0, E) and need not be sorted (``triplet_e2`` is not).
+Both ops take the **owners** of ``idx``, ``owners = (order, offsets)``:
+``order`` (T,) int32, the stable permutation that sorts ``idx``, or
+``None`` when ``idx`` is already sorted (the identity); ``offsets``
+(E + 1,) int32, so that edge e owns ``[offsets[e], offsets[e + 1])`` of the
+order. The model passes the batch's (``data.to_torch`` builds them once
+per batch: the ``triplet_e1`` offsets, and the e2 order of
+:func:`~torch_m3gnet_tpu_torch.ops.fused_triplet.triplet_e2_order`). The
+scatter kernel sums each edge's run with one owner per edge, in order; a
+CUDA call without owners builds them first (one device sort). The take
+keeps them for its VJP, the scatter; the plain versions do not read them.
 
 Each op has a hand-written CUDA kernel (``csrc/windowed_take.cu``), a plain
 torch version (``*_plain``) and an ``autograd.Function``. The Function runs
 the kernel on a CUDA tensor and the plain version on a CPU tensor; on CUDA
 there is no fallback. The two ops are each other's transpose, so each
-one's VJP is the other Function and ``create_graph=True`` works to any
-order.
+one's VJP is the other Function (with the same owners) and
+``create_graph=True`` works to any order.
 
 ``LAUNCHES`` counts the kernel launches of each op (CUDA path only).
 """
@@ -25,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from torch_m3gnet_tpu_torch.ops import _cuda
+from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
 
 LAUNCHES = {"windowed_take_fm": 0, "windowed_scatter_fm": 0}
 
@@ -44,12 +55,25 @@ def scatter_fm_plain(vals_fm: torch.Tensor, idx: torch.Tensor, num_edges: int) -
     return vals_fm.new_zeros((vals_fm.shape[0], num_edges)).index_add_(1, idx, vals_fm)
 
 
-def _check(name, label, x, idx, cols=None):
+def _check(name, label, x, idx, cols=None, owners=()):
     if idx.dim() != 1:
         raise ValueError(f"{name}: idx must be 1-D, got shape {tuple(idx.shape)}")
     if x.dim() != 2 or (cols is not None and x.shape[1] != cols):
         raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected (F, {cols or 'E'})")
-    return _cuda.is_cuda(name, [(label, x)], [("idx", idx)])
+    return _cuda.is_cuda(name, [(label, x)], [("idx", idx), *owners])
+
+
+def _check_owners(name, owners, num_idx, num_edges):
+    """The owners' (order, offsets) shapes, on every path; None passes."""
+    if owners is None:
+        return None, None
+    order, offsets = owners
+    if order is not None and tuple(order.shape) != (num_idx,):
+        raise ValueError(f"{name}: order has shape {tuple(order.shape)}, expected ({num_idx},)")
+    if tuple(offsets.shape) != (num_edges + 1,):
+        raise ValueError(f"{name}: offsets has shape {tuple(offsets.shape)}, "
+                         f"expected ({num_edges + 1},)")
+    return order, offsets
 
 
 def _take_forward(data_fm, idx):
@@ -65,50 +89,62 @@ def _take_forward(data_fm, idx):
     return out
 
 
-def _scatter_forward(vals_fm, idx, num_edges):
-    if not _check("windowed_scatter_fm", "vals", vals_fm, idx, idx.shape[0]):
+def _scatter_forward(vals_fm, idx, num_edges, order, offsets):
+    name = "windowed_scatter_fm"
+    owners = [(label, x) for label, x in (("order", order), ("offsets", offsets)) if x is not None]
+    if not _check(name, "vals", vals_fm, idx, idx.shape[0], owners):
         return scatter_fm_plain(vals_fm, idx, num_edges)
     f, t = vals_fm.shape
     if t == 0 or f * num_edges == 0:  # nothing to add
         return torch.zeros((f, num_edges), dtype=torch.float32, device=vals_fm.device)
+    if offsets is None:  # no owners given: the stable order of any idx
+        order, offsets = triplet_e2_order(idx, num_edges)
     out = torch.empty((f, num_edges), dtype=torch.float32, device=vals_fm.device)
     vals_fm = vals_fm.contiguous()
-    _cuda.launch(LAUNCHES, "windowed_scatter_fm", "m3g_windowed_scatter", out.device,
-                 vals_fm.data_ptr(), idx.data_ptr(), out.data_ptr(), f, num_edges, t)
+    _cuda.launch(LAUNCHES, name, "m3g_windowed_scatter", out.device, vals_fm.data_ptr(),
+                 None if order is None else order.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), f, num_edges, t)
     return out
 
 
 class WindowedTake(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data_fm, idx):
+    def forward(ctx, data_fm, idx, order, offsets):
         out = _take_forward(data_fm, idx)  # checks the shapes first
-        ctx.save_for_backward(idx)
+        ctx.save_for_backward(idx, order, offsets)
         ctx.num_edges = data_fm.shape[1]
         return out
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return windowed_scatter_fm(g, idx, ctx.num_edges), None
+        idx, order, offsets = ctx.saved_tensors
+        owners = None if offsets is None else (order, offsets)
+        return windowed_scatter_fm(g, idx, ctx.num_edges, owners), None, None, None
 
 
 class WindowedScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vals_fm, idx, num_edges):
-        ctx.save_for_backward(idx)
-        return _scatter_forward(vals_fm, idx, num_edges)
+    def forward(ctx, vals_fm, idx, num_edges, order, offsets):
+        ctx.save_for_backward(idx, order, offsets)
+        return _scatter_forward(vals_fm, idx, num_edges, order, offsets)
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return windowed_take_fm(g, idx), None, None
+        idx, order, offsets = ctx.saved_tensors
+        owners = None if offsets is None else (order, offsets)
+        return windowed_take_fm(g, idx, owners), None, None, None, None
 
 
-def windowed_take_fm(data_fm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[:, t] = data_fm[:, idx[t]]: (F, E), int32 (T,) in [0, E) -> (F, T)."""
-    return WindowedTake.apply(data_fm, idx)
+def windowed_take_fm(data_fm: torch.Tensor, idx: torch.Tensor, owners=None) -> torch.Tensor:
+    """out[:, t] = data_fm[:, idx[t]]: (F, E), int32 (T,) in [0, E) -> (F, T).
+    ``owners``: idx's (order or None, offsets), kept for the VJP."""
+    order, offsets = _check_owners("windowed_take_fm", owners, idx.shape[-1], data_fm.shape[-1])
+    return WindowedTake.apply(data_fm, idx, order, offsets)
 
 
-def windowed_scatter_fm(vals_fm: torch.Tensor, idx: torch.Tensor, num_edges: int) -> torch.Tensor:
-    """out[:, e] = sum_{t: idx[t]=e} vals_fm[:, t]: (F, T) -> (F, num_edges)."""
-    return WindowedScatter.apply(vals_fm, idx, num_edges)
+def windowed_scatter_fm(vals_fm: torch.Tensor, idx: torch.Tensor, num_edges: int,
+                        owners=None) -> torch.Tensor:
+    """out[:, e] = sum_{t: idx[t]=e} vals_fm[:, t]: (F, T) -> (F, num_edges),
+    summed along ``owners`` = idx's (order or None, offsets) on CUDA."""
+    order, offsets = _check_owners("windowed_scatter_fm", owners, idx.shape[-1], num_edges)
+    return WindowedScatter.apply(vals_fm, idx, num_edges, order, offsets)
