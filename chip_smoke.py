@@ -66,12 +66,30 @@ Phases (each raises on failure, so any failure exits non-zero):
    (``design_bytes``, ``design_bound_us``): its sorted-owner sum reads the
    offsets (and, by e2, the order) instead of the ids.
 
+8. simulate: the bench cells (32 x 108 atoms, so the C++ neighbour list
+   and triplet enumerator run by default) packed natively and by numpy,
+   every field equal and the distances within 1e-12, with both host build
+   times; NVE MD of the default model for 20 steps with a rebuild every 10
+   (launches of the whole run exactly those of its 22 evaluations:
+   B1-B3 each 2 x num_blocks per evaluation, B8 num_blocks + 2, B4-B7
+   never; the rebuild through the native path), its first 10 steps against
+   the same run on the CPU, the total-energy drift per graph; NVT twice
+   with one seed, bitwise equal, temperatures of the right order; MD, FIRE
+   and L-BFGS steps with no host synchronisation (the sync debug mode at
+   "error"); the rebuild (host, ``to_torch``) and the MD steps timed
+   apart, with the busy share of a 10-step call; FIRE with cell relaxation
+   on 8 cells for two rebuilds, each energy and largest generalized force
+   (atoms and cell) lower; ``elastic_tensor`` and ``force_constants`` of a
+   4-atom cell on the card (the double backward through B1-B3 and B8)
+   against the CPU. The numbers go into the ``{"simulate": ...}`` line.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -118,6 +136,28 @@ MODE_TOL = 1e-4
 # ~84 edge terms per atom over 108 atoms.
 FORCE_SUM_TOL = 1e-3
 
+# Phase 8 (simulate). MD: MD_STEPS steps of 1 fs, a neighbour-list rebuild
+# every MD_REBUILD; relaxation: FIRE on RELAX_GRAPHS of the bench cells.
+MD_STEPS, MD_REBUILD, RELAX_GRAPHS = 20, 10, 8
+# Native vs numpy neighbour distances: the same f64 differences, summed in
+# another order (an f64 ulp at 5 A is 9e-16).
+NATIVE_DIST_TOL = 1e-12
+# Card vs CPU over the first MD_REBUILD NVE steps, as a fraction of the
+# largest magnitude (E_pot, KE per graph; positions): each step's forces
+# differ by the eval's f32 rounding (within MODEL_TOL) and positions by
+# f32 rounding at ~11 A (6e-7 A); ten steps of dt = 1 fs move a Cu atom
+# by ~1e-7 A per 1e-4 eV/A of force difference.
+MD_TOL = 1e-4
+# NVE total-energy drift per graph over MD_STEPS (eV). KE at 300 K is ~4.1 eV
+# per 108-atom cell; the CPU rehearsal (2 cells, f32) drifted 2.9e-3 eV at
+# most, the rebuild included, where edges that cross cutoff + skin shift the
+# energy (the model's edge terms do not vanish beyond its cutoff).
+DRIFT_TOL = 2e-2
+# Card vs CPU for the strain Hessian and the force constants (f32 double
+# backward; fraction of the largest magnitude): second derivatives lose
+# digits to cancellation that the first derivatives keep.
+ELASTIC_TOL = 1e-3
+
 # Peak memory bandwidth (NVIDIA data sheets) and f32 rate outside the tensor
 # cores (67 TFLOP/s, H100 SXM) for the bounds.
 F32_FLOPS = 67e12
@@ -133,9 +173,9 @@ def bandwidth(name: str) -> float:
     return 3.35e12  # H100 SXM
 
 
-def build_batch(n_graphs: int = N_GRAPHS, n_cells: int = N_CELLS, pad_multiple: int = PAD_MULTIPLE):
-    """The bench batch, built as bench.py builds it, with the port's data code."""
-    from torch_m3gnet_tpu_torch.data import Structure, pack_structures
+def bench_structures(n_graphs: int = N_GRAPHS, n_cells: int = N_CELLS) -> list:
+    """The bench structures of bench.py: perturbed fcc-Cu supercells."""
+    from torch_m3gnet_tpu_torch.data import Structure
 
     rng = np.random.default_rng(0)
     base = Structure.from_frac_coords(
@@ -143,7 +183,7 @@ def build_batch(n_graphs: int = N_GRAPHS, n_cells: int = N_CELLS, pad_multiple: 
         [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
         [29] * 4,
     ).supercell((n_cells, n_cells, n_cells))
-    structures = [
+    return [
         Structure(
             base.lattice,
             base.cart_coords + 0.05 * rng.standard_normal(base.cart_coords.shape),
@@ -151,7 +191,13 @@ def build_batch(n_graphs: int = N_GRAPHS, n_cells: int = N_CELLS, pad_multiple: 
         )
         for _ in range(n_graphs)
     ]
-    return pack_structures(structures, 5.0, 4.0, pad_multiple=pad_multiple)
+
+
+def build_batch(n_graphs: int = N_GRAPHS, n_cells: int = N_CELLS, pad_multiple: int = PAD_MULTIPLE):
+    """The bench batch, built as bench.py builds it, with the port's data code."""
+    from torch_m3gnet_tpu_torch.data import pack_structures
+
+    return pack_structures(bench_structures(n_graphs, n_cells), 5.0, 4.0, pad_multiple=pad_multiple)
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -1087,6 +1133,314 @@ def step_line(label, step, gbatch, name, smi, real, reps=50, warmup=5, eval_ms=N
     return step_ms
 
 
+def md_config(**kw):
+    """Phase 8's MD run: the bench cells at 300 K, dt 1 fs, a rebuild of the
+    (skin-padded) neighbour list every MD_REBUILD steps."""
+    from torch_m3gnet_tpu_torch.simulate import MDConfig
+
+    return MDConfig(**{**dict(dt=1.0, n_steps=MD_STEPS, ensemble="nve", temperature=300.0,
+                              rebuild_every=MD_REBUILD, seed=0), **kw})
+
+
+def check_native_data(structures) -> dict:
+    """Phase 8, native data: the bench cells (108 atoms each, so the C++ path
+    runs by default) packed through the native neighbour list and triplet
+    enumerator and through numpy: every field of the two batches equal, and
+    per cell the native list's indices equal and its distances within
+    NATIVE_DIST_TOL of numpy's. Returns the host build times."""
+    from torch_m3gnet_tpu_torch import native
+    from torch_m3gnet_tpu_torch.data import neighbor_list_pbc, pack_structures
+
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    fast = pack_structures(structures, 5.0, 4.0, pad_multiple=PAD_MULTIPLE)
+    native_s = time.perf_counter() - t0
+    want = {"neighbor_list": len(structures), "threebody": len(structures)}
+    if native.CALLS != want:
+        raise AssertionError(f"native calls {native.CALLS}, expected {want}")
+    t0 = time.perf_counter()
+    slow = pack_structures(structures, 5.0, 4.0, pad_multiple=PAD_MULTIPLE, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    if native.CALLS != want:
+        raise AssertionError(f"the numpy path ran native code: {native.CALLS}")
+    for f in dataclasses.fields(fast):
+        a, b = getattr(fast, f.name), getattr(slow, f.name)
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"native and numpy batches differ in {f.name}")
+    dist_err = 0.0
+    for s in structures:
+        a = neighbor_list_pbc(s.lattice, s.cart_coords, 5.0)
+        b = neighbor_list_pbc(s.lattice, s.cart_coords, 5.0, use_native=False)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError("native and numpy neighbour lists differ")
+        dist_err = max(dist_err, float(np.abs(a[2] - b[2]).max()))
+    if dist_err > NATIVE_DIST_TOL:
+        raise AssertionError(f"native distances off by {dist_err:.3e}")
+    print(f"  native batch of {len(structures)} x {len(structures[0])} atoms: "
+          f"{native_s * 1e3:.1f} ms; numpy: {numpy_s * 1e3:.1f} ms; fields equal, "
+          f"distances within {dist_err:.1e}")
+    return {"pack_native_ms": native_s * 1e3, "pack_numpy_ms": numpy_s * 1e3,
+            "native_dist_err": dist_err}
+
+
+def md_step_times(pot, structures, reps: int = 3) -> dict:
+    """One rebuild (host list, then ``to_torch`` with the kernel index) and
+    the MD steps between rebuilds, timed apart on the bench cells (after MD,
+    FIRE and L-BFGS steps ran with no host synchronisation): ms per
+    step = (t(11 steps) - t(1 step)) / 10, each the median of ``reps`` calls
+    that end in a synchronise (every call also evaluates the start forces);
+    the device's busy share of a 10-step call from the profiler."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.simulate import md, relax
+
+    cfg = md_config()
+    wrapped = [s.wrap() for s in structures]
+    host_ms, copy_ms = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _, host = relax.build_batch(wrapped, [s.cart_coords for s in wrapped],
+                                    [s.lattice for s in wrapped], 5.0 + cfg.skin, 4.0,
+                                    PAD_MULTIPLE, dtype=np.float32)
+        t1 = time.perf_counter()
+        batch = relax.device_batch(pot, host)
+        torch.cuda.synchronize()
+        host_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1) * 1e3)
+    rng = np.random.default_rng(0)
+    vel = np.zeros((batch.num_nodes, 3))
+    real = sum(len(s) for s in structures)
+    vel[:real] = md.maxwell_boltzmann_velocities(np.full(real, md.ATOMIC_MASSES[29]), 300.0, rng)
+    dev = pot.model.edge_init.kernel.device
+    vel, masses = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                   for a in (vel, md.node_masses(host)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def run(n):
+        with torch.no_grad():
+            md._md_inner(pot, batch, vel, masses, gen, cfg, n)
+        torch.cuda.synchronize()
+
+    # The steps between rebuilds must not wait for the device: with the
+    # sync debug mode at "error", any op that synchronises raises.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            md._md_inner(pot, batch, vel, masses, gen, cfg, 2)
+            relax._fire_inner(pot, batch, relax.FireConfig(relax_cell=True), 2)
+            relax._lbfgs_inner(pot, batch, relax.LbfgsConfig(relax_cell=True), 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  MD (NVE), FIRE and L-BFGS steps with cell ran with the sync debug mode at "
+          "'error': no host synchronisation")
+    run(2)  # warm-up
+    times = {}
+    for n in (1, 11):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run(n)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        times[n] = statistics.median(walls)
+    step_ms = (times[11] - times[1]) / 10
+    profile = profile_step(lambda: run(10), times[11] - step_ms, steps=1)
+    return {
+        "rebuild_host_ms": statistics.median(host_ms),
+        "rebuild_to_torch_ms": statistics.median(copy_ms),
+        "md_ms_per_step": step_ms, "atom_steps_per_s": real / (step_ms * 1e-3),
+        "md_10_steps_ms": times[11] - step_ms,
+        "md_busy_share": profile["busy_share"],
+        "md_device_busy_ms_per_step": profile["device_busy_ms_per_step"] / 10,
+        "md_kernel_launches_per_step": profile["kernel_launches_per_step"] / 10,
+    }
+
+
+def check_md(pot, cfg, structures) -> dict:
+    """Phase 8, MD: NVE on the bench cells for MD_STEPS steps, one rebuild
+    through the native list; the launches of the whole run (counts set to 0
+    just before it) are those of MD_STEPS + rebuilds evaluations (each
+    rebuild evaluates its start forces); its first MD_REBUILD steps against
+    the same run on the CPU; the total-energy drift per graph; then NVT
+    twice with one seed (deterministic algorithms on: torch's ``index_add``
+    on the card then sums in a fixed order), bitwise equal."""
+    import dataclasses as dc
+
+    import torch
+
+    from torch_m3gnet_tpu_torch import native
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.simulate import run_md
+
+    n_graphs, real = len(structures), sum(len(s) for s in structures)
+    nve = md_config(record_trajectory=True)
+    rebuilds = -(-MD_STEPS // MD_REBUILD)
+    reset_launches()
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    card = run_md(pot, structures, 5.0, 4.0, nve, pad_multiple=PAD_MULTIPLE)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    evals = MD_STEPS + rebuilds
+    per_eval = expected_launches("factorized", cfg.num_blocks, False)
+    per_step = {k: v / evals for k, v in launches.items()}
+    print(f"  NVE {MD_STEPS} steps ({rebuilds} rebuilds, {evals} evaluations): launches "
+          f"{launches}; per MD step {per_step}")
+    if launches != {k: v * evals for k, v in per_eval.items()}:
+        raise AssertionError(f"MD launches {launches}, expected {per_eval} x {evals}")
+    want_native = {"neighbor_list": n_graphs * rebuilds, "threebody": n_graphs * rebuilds}
+    if native.CALLS != want_native:
+        raise AssertionError(f"native calls {native.CALLS}, expected {want_native}")
+
+    cpu_pot = build_model(cfg, device="cpu")
+    cpu_pot.load_state_dict(pot.state_dict())
+    t0 = time.perf_counter()
+    cpu = run_md(cpu_pot, structures, 5.0, 4.0, dc.replace(nve, n_steps=MD_REBUILD),
+                 pad_multiple=PAD_MULTIPLE)
+    print(f"  CPU reference, {MD_REBUILD} steps: {time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for label, got, want in (
+        ("E_pot", card.energies[:MD_REBUILD], cpu.energies),
+        ("KE", card.kinetic[:MD_REBUILD], cpu.kinetic),
+        ("positions", np.stack([t[:MD_REBUILD] for t in card.trajectories]),
+         np.stack(cpu.trajectories)),
+    ):
+        errs[label] = check(f"MD {label}, card vs CPU, {MD_REBUILD} steps", torch.as_tensor(got),
+                            torch.as_tensor(want), MD_TOL)
+    for name in ("energies", "kinetic", "temperatures"):
+        if not np.isfinite(getattr(card, name)).all():
+            raise AssertionError(f"MD {name} not finite")
+    total = card.energies + card.kinetic
+    drift = np.abs(total - total[0]).max(axis=0)  # (B,) eV
+    print(f"  NVE total-energy drift per graph over {MD_STEPS} steps: max {drift.max():.3e} eV "
+          f"(bound {DRIFT_TOL:g}); KE(0) mean {card.kinetic[0].mean():.3f} eV")
+    if drift.max() > DRIFT_TOL:
+        raise AssertionError(f"NVE energy drift {drift.max():.3e} eV above {DRIFT_TOL}")
+
+    nvt = md_config(ensemble="nvt", friction=0.01, seed=1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [run_md(pot, structures, 5.0, 4.0, nvt, pad_multiple=PAD_MULTIPLE)
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(
+        np.array_equal(getattr(runs[0], k), getattr(runs[1], k))
+        for k in ("energies", "kinetic")
+    ) and all(
+        np.array_equal(a.cart_coords, b.cart_coords)
+        and np.array_equal(a.properties["velocities"], b.properties["velocities"])
+        for a, b in zip(runs[0].structures, runs[1].structures)
+    )
+    temps = runs[0].temperatures
+    print(f"  NVT {MD_STEPS} steps twice, seed 1: bitwise equal {same}; T mean "
+          f"{temps.mean():.1f} K (min {temps.min():.1f}, max {temps.max():.1f})")
+    if not same:
+        raise AssertionError("two NVT runs with one seed differ")
+    if not (np.isfinite(temps).all() and 100.0 < temps.mean() < 900.0):
+        raise AssertionError(f"NVT temperatures off: mean {temps.mean()}")
+    return {"md_nve_run_ms": run_ms, "md_steps": MD_STEPS, "md_rebuilds": rebuilds,
+            "md_atoms": real, "md_launches_per_step": per_step,
+            "md_card_vs_cpu_max_abs_err": errs, "nve_drift_ev_max": float(drift.max()),
+            "nve_ke0_ev_mean": float(card.kinetic[0].mean()),
+            "nvt_bitwise_repeat": same, "nvt_t_mean_k": float(temps.mean())}
+
+
+def relax_state(pot, structures):
+    """Per graph: energy, largest atomic force and largest generalized force
+    of FIRE with cell relaxation (atoms' forces and the strain forces
+    -V sigma / n_atoms, ASE UnitCellFilter's convention), evaluated on a
+    neighbour list at cutoff + skin as the relaxation builds it."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.simulate import relax
+
+    wrapped = [s.wrap() for s in structures]
+    graphs, host = relax.build_batch(wrapped, [s.cart_coords for s in wrapped],
+                                     [s.lattice for s in wrapped], 5.3, 4.0, PAD_MULTIPLE)
+    out = pot(host)
+    n = len(structures)
+    f = out.forces.detach().cpu().numpy()
+    lat = torch.as_tensor(host.lattice)
+    strain_f = relax._stress_force(out.stress.detach().cpu(), lat, torch.as_tensor(host.n_node),
+                                   lat.dtype).numpy()
+    offs = np.cumsum([0] + [g.num_nodes for g in graphs])
+    fmax = np.array([np.linalg.norm(f[offs[i]:offs[i + 1]], axis=1).max() for i in range(n)])
+    gmax = np.maximum(fmax, np.abs(strain_f[:n]).max(axis=(1, 2)))
+    return out.energy.detach().cpu().numpy()[:n], fmax, gmax
+
+
+def check_relax(pot, structures) -> dict:
+    """Phase 8, relaxation: FIRE with cell relaxation on RELAX_GRAPHS bench
+    cells for two rebuilds: each graph's energy and largest generalized
+    force (what FIRE drives to zero with a cell DOF) fall. The seeded model
+    is unbound, so the cell expands and the atoms' own largest force may
+    grow; it is printed beside."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.simulate import FireConfig, relax_structures
+
+    fire = FireConfig(max_steps=2 * MD_REBUILD, rebuild_every=MD_REBUILD, relax_cell=True,
+                      fmax=1e-6, smax=1e-9)
+    e0, f0, g0 = relax_state(pot, structures)
+    t0 = time.perf_counter()
+    relaxed, _, _ = relax_structures(pot, structures, 5.0, 4.0, fire, pad_multiple=PAD_MULTIPLE)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    e1, f1, g1 = relax_state(pot, relaxed)
+    n = len(structures)
+    print(f"  FIRE + cell, {n} cells, {fire.max_steps} steps: E {e0.sum():.5f} -> "
+          f"{e1.sum():.5f} eV (sum); largest generalized force {g0.max():.6f} -> "
+          f"{g1.max():.6f}, atomic {f0.max():.6f} -> {f1.max():.6f} eV/A; "
+          f"{ms / fire.max_steps:.2f} ms per step with its rebuilds")
+    if not ((e1 < e0).all() and (g1 < g0).all()):
+        raise AssertionError(f"relaxation did not lower every energy and generalized force: "
+                             f"{e0} -> {e1}, {g0} -> {g1}")
+    return {"relax_graphs": n, "relax_steps": fire.max_steps,
+            "relax_ms_per_step": ms / fire.max_steps,
+            "relax_e_ev": [float(e0.sum()), float(e1.sum())],
+            "relax_gen_fmax": [float(g0.max()), float(g1.max())],
+            "relax_atom_fmax": [float(f0.max()), float(f1.max())]}
+
+
+def check_elastic(pot, cfg) -> dict:
+    """Phase 8, second derivatives: ``elastic_tensor`` and ``force_constants``
+    of a perturbed 4-atom fcc-Cu cell on the card (the double backward, with
+    B1-B3 and B8 launched in it) against the same on the CPU, both f32."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.data import Structure, pack_structures
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.simulate import elastic_tensor, force_constants
+
+    rng = np.random.default_rng(2)
+    frac = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cell = Structure.from_frac_coords(np.eye(3) * 3.62, frac + rng.normal(0, 0.01, (4, 3)),
+                                      [29] * 4)
+    batch = pack_structures([cell], 5.0, 4.0, pad_multiple=64)
+    cpu_pot = build_model(cfg, device="cpu")
+    cpu_pot.load_state_dict(pot.state_dict())
+    out = {}
+    for name, fn in (("elastic_tensor", elastic_tensor), ("force_constants", force_constants)):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = fn(pot, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = all_launches()
+        want = fn(cpu_pot, batch)
+        err = check(f"{name} card vs CPU (f32)", torch.as_tensor(got), torch.as_tensor(want),
+                    ELASTIC_TOL)
+        print(f"  {name}: {ms:.1f} ms; launches {launches}")
+        second_order = ("q_scatter", "r1_gather", "r2_gather", "sorted_segment_sum")
+        if not all(launches[k] for k in second_order):
+            raise AssertionError(f"{name} did not run B1-B3 and B8 on the card: {launches}")
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{name} is not finite")
+        out[name] = {"ms": ms, "max_abs_err": err, "launches": launches}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1180,6 +1534,16 @@ def main() -> int:
     for row in rows:
         row["launches_train"] = (train_launches["factorized"][row["name"]]
                                  or train_launches["fused"][row["name"]])
+
+    print("== 8. simulate (native data, MD, relaxation, elastic constants)")
+    structures = bench_structures()
+    sim = {"card": name, "nvidia_smi": smi}
+    sim.update(check_native_data(structures))
+    sim.update(check_md(pot, cfg, structures))
+    sim.update(md_step_times(pot, structures))
+    sim.update(check_relax(pot, structures[:RELAX_GRAPHS]))
+    sim.update(check_elastic(pot, cfg))
+    print(json.dumps({"simulate": sim}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

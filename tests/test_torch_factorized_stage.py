@@ -79,28 +79,69 @@ def test_forward_matches_pallas(interpret):
     assert empty.size and not cases[0][1][:, empty].any()
 
 
+def _stage(q, r1, src, n):
+    """s, g -> R1(Q(s, g), s): the factorized stage's projection."""
+    return lambda s, g: r1(q(s, g, src, n, L_MAX, N_MAX), s, src, L_MAX, N_MAX)
+
+
 def test_stage_vjp_matches_jax_grad(interpret):
-    """sum(sin(R1(Q(sh, gm), sh) - gm)) and its gradients with respect to sh
-    and gm, at the tolerances of test_pallas_factorized.py: abs 5e-4 on the
-    cancellation-heavy f32 value; atol 5e-4, rtol 1e-3 on the gradients
-    (two chained f32 segment reductions in different orders)."""
+    """The composed stage P = R1(Q(sh, gm), sh) and its VJP, two ways.
+
+    float64: the scalar sum(sin(P - gm)) and its gradients with respect to
+    sh and gm through the port's Functions against JAX's XLA twins
+    (q_scatter_xla, r1_gather_xla) at x64: rtol 1e-12 on the value, and on
+    each gradient atol 1e-12 of its largest magnitude (5,400 terms summed
+    in other orders leave ~1e-14 relative).
+
+    float32, element by element, against the Pallas kernels in interpret
+    mode: P, and the VJP of P for a standard-normal cotangent c. Every one
+    of these numbers is a sum of products of the inputs, so each side's f32
+    result lies within gamma_k * F(|sh|, |gm|, |c|) of the exact value,
+    where F is the same function evaluated in f64 on absolute values (the
+    sum of |term|) and gamma_k = k * 2^-24 / (1 - k * 2^-24), with k the
+    longest chain of roundings: 2 * (largest node degree + l_max^2) + 2. The
+    two sides may differ by twice that. (The f32 scalar itself is not
+    compared: sin of P up to ~77 turns each P's rounding into an error of
+    the sum, and its value moved by 2.7e-3 between runs of the same code.)
+    """
     sh, gm, a, src, n, e = _data(e=600, n=32, seed=2)
-
-    def jstage(s, g):
-        proj = jr1(jq(s, g, jnp.asarray(src), n, L_MAX, N_MAX), s, jnp.asarray(src), e, L_MAX, N_MAX)
-        return jnp.sum(jnp.sin(proj - g))
-
-    want = float(jstage(jnp.asarray(sh), jnp.asarray(gm)))
-    want_g = jax.grad(jstage, argnums=(0, 1))(jnp.asarray(sh), jnp.asarray(gm))
-
-    tsh, tgm = (torch.tensor(x, requires_grad=True) for x in (sh, gm))
     tsrc = torch.as_tensor(src)
-    proj = fs.r1_gather(fs.q_scatter(tsh, tgm, tsrc, n, L_MAX, N_MAX), tsh, tsrc, L_MAX, N_MAX)
-    val = torch.sin(proj - tgm).sum()
+
+    # float64: the port's Functions against the XLA twins at x64
+    tsh, tgm = (torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (sh, gm))
+    val = torch.sin(_stage(fs.q_scatter, fs.r1_gather, tsrc, n)(tsh, tgm) - tgm).sum()
     got_g = torch.autograd.grad(val, (tsh, tgm))
-    assert float(val.detach()) == pytest.approx(want, abs=5e-4)
+    with jax.enable_x64(True):
+        jstage = _stage(q_scatter_xla, lambda a_, s_, src_, l, nm: r1_gather_xla(
+            a_, s_, src_, e, l, nm), jnp.asarray(src), n)
+        loss = lambda s, g: jnp.sum(jnp.sin(jstage(s, g) - g))  # noqa: E731
+        args = (jnp.asarray(sh, jnp.float64), jnp.asarray(gm, jnp.float64))
+        want = float(loss(*args))
+        want_g = [np.asarray(w) for w in jax.grad(loss, argnums=(0, 1))(*args)]
+    assert float(val.detach()) == pytest.approx(want, rel=1e-12)
     for got, w in zip(got_g, want_g):
-        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-4, rtol=1e-3)
+        assert w.dtype == np.float64
+        np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=1e-12 * np.abs(w).max())
+
+    # float32, element by element: the Function and the Pallas kernels
+    cot = np.random.default_rng(7).standard_normal((LN, e)).astype(np.float32)
+    tsh, tgm = (torch.tensor(x, requires_grad=True) for x in (sh, gm))
+    proj = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)(tsh, tgm)
+    got = [proj.detach(), *torch.autograd.grad(proj, (tsh, tgm), torch.as_tensor(cot))]
+    jproj, vjp = jax.vjp(_stage(jq, lambda a_, s_, src_, l, nm: jr1(a_, s_, src_, e, l, nm),
+                                jnp.asarray(src), n), jnp.asarray(sh), jnp.asarray(gm))
+    want = [jproj, *vjp(jnp.asarray(cot))]
+    abs_sh, abs_gm = (torch.tensor(np.abs(x), dtype=torch.float64, requires_grad=True)
+                      for x in (sh, gm))
+    abs_proj = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)(abs_sh, abs_gm)
+    bound = [abs_proj.detach(), *torch.autograd.grad(
+        abs_proj, (abs_sh, abs_gm), torch.as_tensor(np.abs(cot), dtype=torch.float64))]
+    k = 2 * (int(np.bincount(src).max()) + L_MAX * L_MAX) + 2
+    gamma = k * 2.0**-24 / (1 - k * 2.0**-24)
+    for name, g, w, b in zip(("P", "d_sh", "d_gm"), got, want, bound):
+        assert g.dtype == torch.float32
+        err = np.abs(g.numpy().astype(np.float64) - np.asarray(w, np.float64))
+        assert (err <= 2 * gamma * b.numpy()).all(), (name, float(err.max()))
 
 
 @pytest.mark.parametrize("sizes", [(1, 1), (3, 3), (4, 4)])
@@ -190,8 +231,9 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, imported in a fresh interpreter, loads no
-    module of jax, flax or torch_m3gnet_tpu."""
+    """Every module of the port (the simulation path and the native loader
+    among them), imported in a fresh interpreter, loads no module of jax,
+    flax or torch_m3gnet_tpu, and no logging package."""
     code = """
 import importlib, pkgutil, sys
 import torch_m3gnet_tpu_torch as pkg
@@ -204,9 +246,11 @@ print(len(names), bad)
 assert not bad, bad
 for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "models.m3gnet",
              "ops.sorted_segment", "data.dataset", "train.loop", "train.metrics",
-             "train.elemental"):
+             "train.elemental", "native", "data.neighborlist", "data.triplets", "simulate",
+             "simulate.relax", "simulate.md", "simulate.observables", "simulate.eos",
+             "simulate.elastic"):
     assert pkg.__name__ + "." + name in names, name
-assert len(names) >= 20, names
+assert len(names) >= 27, names
 logging = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("tensorboard", "tensorboardX", "wandb", "mlflow"))
 assert not logging, logging

@@ -2,11 +2,13 @@ from torch_m3gnet_tpu_torch.data.dataset import BucketSpec, batch_iterator, spli
 from torch_m3gnet_tpu_torch.data.graph import (
     GraphBatch,
     batch_graphs,
+    cast_batch,
     graph_from_structure,
     pack_structures,
     pad_batch,
     round_up,
     to_torch,
+    triplet_counts,
 )
 from torch_m3gnet_tpu_torch.data.neighborlist import neighbor_list_pbc
 from torch_m3gnet_tpu_torch.data.structure import Structure
@@ -18,6 +20,7 @@ __all__ = [
     "Structure",
     "batch_graphs",
     "batch_iterator",
+    "cast_batch",
     "compute_threebody",
     "graph_from_structure",
     "neighbor_list_pbc",
@@ -26,4 +29,5 @@ __all__ = [
     "round_up",
     "split_dataset",
     "to_torch",
+    "triplet_counts",
 ]

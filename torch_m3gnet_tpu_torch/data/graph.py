@@ -125,17 +125,20 @@ def graph_from_structure(
     cutoff: float,
     threebody_cutoff: float,
     dtype=np.float32,
+    use_native: bool | None = None,
 ) -> GraphBatch:
     """Build a single (unpadded) graph from a crystal structure: full PBC
     neighbor list at ``cutoff``, triplets among edges within
-    ``threebody_cutoff``, 0-indexed atomic numbers."""
+    ``threebody_cutoff``, 0-indexed atomic numbers. ``use_native`` picks
+    the path of both host searches (``neighbor_list_pbc``,
+    ``compute_threebody``); the paths give the same graph."""
     if threebody_cutoff > cutoff:
         raise ValueError("threebody_cutoff must be <= cutoff")
     edge_index, shift, dist = neighbor_list_pbc(
-        structure.lattice, structure.cart_coords, cutoff
+        structure.lattice, structure.cart_coords, cutoff, use_native=use_native
     )
     n = len(structure)
-    tei, _, _ = compute_threebody(n, edge_index, dist, threebody_cutoff)
+    tei, _, _ = compute_threebody(n, edge_index, dist, threebody_cutoff, use_native=use_native)
 
     props = structure.properties
     energy = props.get("energy")
@@ -227,6 +230,34 @@ def batch_graphs(graphs: Sequence[GraphBatch]) -> GraphBatch:
     return GraphBatch(**cat, num_graphs_real=sum(g.num_graphs_real for g in graphs))
 
 
+def cast_batch(batch: GraphBatch, dtype) -> GraphBatch:
+    """The host batch with its floating-point fields cast to ``dtype`` (for
+    example float64 for the second-derivative routines of ``simulate``)."""
+
+    def cast(a):
+        if a is not None and np.issubdtype(np.asarray(a).dtype, np.floating):
+            return np.asarray(a, dtype=dtype)
+        return a
+
+    return dataclasses.replace(batch, **{
+        f.name: cast(getattr(batch, f.name)) for f in dataclasses.fields(GraphBatch)
+        if f.name != "num_graphs_real"})
+
+
+def triplet_counts(batch: GraphBatch) -> tuple[np.ndarray, np.ndarray]:
+    """Per-node and per-edge triplet counts, recovered from the batch:
+    ``num_triplet_i[n]`` triplets centred on node n (d * (d - 1) for a node
+    of 3-body degree d) and ``num_triplet_ij[e]`` triplets whose first edge
+    is e (d(src) - 1 for an edge within the 3-body cutoff, else 0). Padded
+    triplets are left out; the shapes are the padded N and E."""
+    e1 = np.asarray(batch.triplet_e1)[np.asarray(batch.triplet_mask, bool)]
+    num_edges = np.asarray(batch.edge_src).shape[-1]
+    num_nodes = np.asarray(batch.positions).shape[-2]
+    num_triplet_ij = np.bincount(e1, minlength=num_edges)
+    num_triplet_i = np.bincount(np.asarray(batch.edge_src)[e1], minlength=num_nodes)
+    return num_triplet_i, num_triplet_ij
+
+
 def round_up(x: int, multiple: int) -> int:
     if multiple <= 1:
         return max(x, 1)
@@ -303,9 +334,11 @@ def pack_structures(
     max_graphs: int | None = None,
     pad_multiple: int = 128,
     dtype=np.float32,
+    use_native: bool | None = None,
 ) -> GraphBatch:
     """Structures -> graphs -> concatenated -> padded batch in one call."""
-    graphs = [graph_from_structure(s, cutoff, threebody_cutoff, dtype=dtype) for s in structures]
+    graphs = [graph_from_structure(s, cutoff, threebody_cutoff, dtype=dtype, use_native=use_native)
+              for s in structures]
     cat = batch_graphs(graphs)
     return pad_batch(
         cat,

@@ -1,10 +1,11 @@
 """PBC neighbor list (host side, vectorized numpy).
 
-Own copy of the numpy path of ``torch_m3gnet_tpu.data.neighborlist``: a full
-(directed, both i->j and j->i) neighbor list with integer periodic-image
-shifts, sorted by source node. The C++ cell-list path of the JAX package is
-not ported yet; this path is O(N^2 * images) and serves cells of a few
-hundred atoms.
+Own copy of ``torch_m3gnet_tpu.data.neighborlist``: a full (directed,
+both i->j and j->i) neighbor list with integer periodic-image shifts, sorted
+by (src, dst, shift). Two paths give the same edges in the same order: the
+C++ cell list (``native``, O(N)), chosen from 48 atoms up, and the
+vectorized numpy search (O(N^2 * images)), which has the lower constant cost
+for small cells.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def neighbor_list_pbc(
     cart_coords: np.ndarray,
     cutoff: float,
     chunk_size: int = 4_000_000,
+    use_native: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Full directed neighbor list under periodic boundary conditions.
 
@@ -38,6 +40,9 @@ def neighbor_list_pbc(
         cart_coords: (N, 3) cartesian positions (need not be wrapped).
         cutoff: inclusive distance cutoff.
         chunk_size: max number of candidate pairs per vectorized block.
+        use_native: the C++ cell list (True), numpy (False) or, with None,
+            the C++ one from 48 atoms up. The native path raises
+            ``native.NativeBuildError`` when it cannot be built.
 
     Returns:
         (edge_index, edge_cell_shift, distances):
@@ -48,6 +53,12 @@ def neighbor_list_pbc(
     lattice = np.asarray(lattice, dtype=np.float64)
     pos = np.asarray(cart_coords, dtype=np.float64)
     n = pos.shape[0]
+    if use_native is None:
+        use_native = n >= 48
+    if use_native:
+        from torch_m3gnet_tpu_torch import native
+
+        return native.neighbor_list_native(lattice, pos, cutoff)
     if n == 0:
         return (
             np.zeros((2, 0), dtype=np.int64),

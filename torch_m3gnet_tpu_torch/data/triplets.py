@@ -1,11 +1,13 @@
 """Vectorized three-body (triplet) index enumeration (host side, numpy).
 
-Own copy of the numpy path of ``torch_m3gnet_tpu.data.triplets``. A triplet
+Own copy of ``torch_m3gnet_tpu.data.triplets``. A triplet
 t = (e1, e2) is an **ordered** pair of distinct edges sharing a source node
 i, both within ``threebody_cutoff``: edge e1 = i->j, edge e2 = i->k. A node
 of 3-body degree d has d*(d-1) triplets. The factorized model never reads
 the triplets; the batch carries them for the throughput metric
-(edges + triplets per second) and for the later ``gather`` mode.
+(edges + triplets per second) and for the per-triplet modes. The C++
+enumerator (``native``) and the vectorized numpy path give the same
+triplets in the same order.
 """
 
 from __future__ import annotations
@@ -18,8 +20,13 @@ def compute_threebody(
     edge_index: np.ndarray,
     distances: np.ndarray,
     threebody_cutoff: float,
+    use_native: bool | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Enumerate ordered same-source edge pairs within the 3-body cutoff.
+
+    ``use_native`` None or True runs the C++ enumerator (the dominant host
+    cost of an MD or relaxation rebuild in numpy), which raises
+    ``native.NativeBuildError`` when it cannot be built; False runs numpy.
 
     Returns:
         (triplet_edge_index, num_triplet_i, num_triplet_ij):
@@ -30,6 +37,10 @@ def compute_threebody(
     """
     edge_index = np.asarray(edge_index)
     distances = np.asarray(distances)
+    if use_native is None or use_native:
+        from torch_m3gnet_tpu_torch import native
+
+        return native.threebody_native(num_nodes, edge_index, distances, threebody_cutoff)
     num_edges = edge_index.shape[1]
 
     valid_ids = np.nonzero(distances <= threebody_cutoff)[0]

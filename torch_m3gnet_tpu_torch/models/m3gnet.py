@@ -141,6 +141,10 @@ class M3GNet(nn.Module):
             "elemental_energies", torch.as_tensor(elem, dtype=torch.float64), persistent=False
         )
         self.sph_norm = [math.sqrt((2 * ell + 1) / (4.0 * math.pi)) for ell in range(l_max)]
+        # The same on the model's device for the per-triplet stage, so that
+        # no call copies it from the host (a synchronising copy).
+        self.register_buffer("sph_norm_t", torch.tensor(self.sph_norm, dtype=torch.float64),
+                             persistent=False)
 
     @property
     def batch_index(self) -> tuple[str, ...]:
@@ -264,7 +268,7 @@ class M3GNet(nn.Module):
         rij, rik = g1[3], g2[3]  # padded triplets: rij = rc > 0 (e1 is a padded edge)
         cos_jik = torch.clamp((g1[:3] * g2[:3]).sum(0) / (rij * rik), -1.0, 1.0)
         fc = cutoff_poly(rij, rc3) * cutoff_poly(rik, rc3)  # (T,)
-        sph = legendre_cos_all(cos_jik, l_max) * cos_jik.new_tensor(self.sph_norm)[:, None]
+        sph = legendre_cos_all(cos_jik, l_max) * self.sph_norm_t[:, None].to(cos_jik.dtype)
         chi = normalized_spherical_bessel(rik, rc, l_max, n_max)  # (l, n, T)
         # The mask stays: padded triplets point at real edges (e2 = 0), and
         # it is what zeroes their gradient.
