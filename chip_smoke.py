@@ -83,6 +83,32 @@ Phases (each raises on failure, so any failure exits non-zero):
    4-atom cell on the card (the double backward through B1-B3 and B8)
    against the CPU. The numbers go into the ``{"simulate": ...}`` line.
 
+9. train workflow: 112 perturbed, strained fcc-Cu cells (half 32, half
+   108 atoms) labelled by a seed-1 teacher on the card, written as an
+   mlearn set (96 training, 16 test) and as MPF block pickles (trajectories
+   of 4 frames, CIF strings). The mlearn CLI (``configs/mlearn_Cu.yaml``,
+   2 epochs), the MPF CLI streaming (``configs/mpf.yaml``, 16-graph shards,
+   1 epoch), ``train_model`` on those shards with a 3-class ladder (every
+   class trained, in its own padded shape) and in memory in the fused mode
+   (1 epoch each), all on the card with the default model: each run's
+   launches exactly its train and eval steps' (B1-B3 and B8, or B4-B8);
+   the mlearn run's logs and checkpoints, a train loss that falls from
+   epoch 0 to 1, finite test metrics, and ``last`` restored into a fresh
+   potential evaluating a test batch bit for bit as the trainer does. Then
+   one epoch with ``prefetch=2`` and one with ``prefetch=0`` under
+   deterministic algorithms: bitwise equal weights, each step period, the
+   busy share of a profiled epoch and the producer's host work per batch;
+   and a 2-step ``train_model`` on 16 cells on the card against the CPU
+   (losses within ``WORKFLOW_TOL``). These losses hardly depend on the
+   weights (the student's energy scale, fitted to the labels' spread, is
+   ~1e-2 of the teacher's). So at phase 9's padded shapes (the bucket of
+   batch 8; the ladder's smallest class) every kernel is held against its
+   plain version, and one ``Trainer`` step of that student against the
+   CPU where it acts: its gradient within ``TRAIN_TOL``, its update within
+   ``UPDATE_TOL``; a negated gradient, a skipped update and ``r1_gather``
+   off by ``CONTROL_SCALE`` must each fail. The numbers go into the
+   ``{"workflow": ...}`` line.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
 """
@@ -390,14 +416,22 @@ def check_sorted_index_cases() -> None:
     print("  every case: equal to the plain version, two calls bitwise equal")
 
 
-def check_kernels(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, float]:
-    """Each kernel against its plain version, forward and composed VJP."""
+def check_kernels(src, num_nodes: int, l_max: int, n_max: int,
+                  edge_mask=None) -> dict[str, float]:
+    """Each kernel against its plain version, forward and composed VJP.
+    With ``edge_mask``, gm and the VJP's cotangent are zero on padded
+    edges, as the model's are (its cutoff factor carries the mask): a batch
+    padded far beyond its real edges then puts no sum of thousands of
+    random terms on the padding node, which the VJP's sin would turn into
+    phase errors."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
 
     e = src.shape[0]
     sh, gm, a = stage_inputs(num_nodes, e, l_max, n_max, src.device)
+    emask = 1.0 if edge_mask is None else edge_mask.to(gm.dtype)
+    gm = gm * emask
     errs = {}
     with torch.no_grad():
         errs["q_scatter"] = check(
@@ -413,7 +447,7 @@ def check_kernels(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, floa
     def stage_grads(q, r1):
         s, g = sh.clone().requires_grad_(True), gm.clone().requires_grad_(True)
         proj = r1(q(s, g, src, num_nodes, l_max, n_max), s, src, l_max, n_max)
-        return torch.autograd.grad(torch.sin(proj - g).sum(), (s, g))
+        return torch.autograd.grad((torch.sin(proj - g) * emask).sum(), (s, g))
 
     got = stage_grads(fs.q_scatter, fs.r1_gather)
     want = stage_grads(fs.q_scatter_plain, fs.r1_gather_plain)
@@ -465,17 +499,21 @@ def expected_launches(mode: str, nb: int, train: bool) -> dict[str, int]:
     return counts
 
 
-def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
+def check_triplet_kernels(gbatch, ln: int, f: int = 4, masked: bool = False) -> dict[str, float]:
     """B4-B7 against their plain versions on the batch's real triplet_e1
     (sorted) and triplet_e2 (unsorted), forward and VJP, with the batch's
     owners of each (B7 also without them, so that its wrapper builds the
-    stable order: bitwise equal to a call given that order)."""
+    stable order: bitwise equal to a call given that order). ``masked``:
+    B7's values and the take VJP's cotangent are zero on padded triplets,
+    as the model's are (its basis carries the mask)."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
     from torch_m3gnet_tpu_torch.ops import windowed_take as wt
 
     basis, gate, g, data, vals = triplet_inputs(gbatch, ln, f)
+    tmask = gbatch.triplet_mask.to(vals.dtype) if masked else 1.0
+    vals = vals * tmask
     e1, e2, e = gbatch.triplet_e1, gbatch.triplet_e2, gbatch.num_edges
     order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
     owners = {"e1": (None, gbatch.triplet_e1_offsets), "e2": order}
@@ -524,7 +562,7 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4) -> dict[str, float]:
 
     def take_grad(take):
         d = data.clone().requires_grad_(True)
-        y = torch.sin(take(d, e1, owners["e1"])) * take(d, e2, owners["e2"])
+        y = torch.sin(take(d, e1, owners["e1"])) * take(d, e2, owners["e2"]) * tmask
         return torch.autograd.grad(y.sum(), d)[0]
 
     check("take VJP (windowed_scatter_fm kernel, e1 and e2)", take_grad(wt.windowed_take_fm),
@@ -649,12 +687,14 @@ def seeded(shape, device, seed: int):
     return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
 
 
-def check_sorted_segment(gbatch) -> float:
+def check_sorted_segment(gbatch, masked: bool = False) -> float:
     """B8 against its plain version (``index_add``) at the four shapes, as
     the model calls it: forward, VJP (the gather), gradient of the gradient
     (whose backward runs B8 again), two kernel calls bitwise equal, and,
     where the batch's offsets are given, bitwise equal to the call that
-    runs the kernel's own offsets pass."""
+    runs the kernel's own offsets pass. ``masked``: the summed values and
+    the second cotangent are zero on padded edges (triplets), as the
+    model's are."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
@@ -662,6 +702,11 @@ def check_sorted_segment(gbatch) -> float:
     errs = []
     for i, (label, f, seg, nseg, off) in enumerate(sorted_sum_cases(gbatch)):
         x = seeded((f, seg.shape[0]), seg.device, 10 + i)
+        mask = 1.0
+        if masked:
+            mask = (gbatch.triplet_mask if seg is gbatch.triplet_e1 else gbatch.edge_mask)
+            mask = mask.to(x.dtype)
+        x = x * mask
         w = seeded((f, nseg), seg.device, 20 + i)
         with torch.no_grad():
             got = ss.sorted_segment_sum_fm(x, seg, nseg, off)
@@ -684,7 +729,7 @@ def check_sorted_segment(gbatch) -> float:
             xx = x.clone().requires_grad_(True)
             y = op(xx)
             (g,) = torch.autograd.grad((y * y).sum(), xx, create_graph=True)
-            return torch.autograd.grad((g * g).sum(), xx)[0]
+            return torch.autograd.grad((g * g * mask).sum(), xx)[0]
 
         def kernel(d):
             return ss.sorted_segment_sum_fm(d, seg, nseg, off)
@@ -1441,6 +1486,661 @@ def check_elastic(pot, cfg) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the training workflow
+# ---------------------------------------------------------------------------
+
+# 96 training and 16 test cells, half 2x2x2 (32 atoms), half 3x3x3 (108).
+WF_TRAIN, WF_TEST = 96, 16
+# MPF trajectories: frames per material id; stream shard size.
+WF_FRAMES, WF_SHARD = 4, 16
+# Card vs CPU for a 2-step train_model (f32 on both): the epoch's train loss
+# and the test loss, as a fraction of the larger. The f32-vs-f64 CPU
+# rehearsal of the same run (16 cells, the default model, CPU teacher
+# labels) read 9.6e-10 apart. These losses hold the data path (batches,
+# targets, masks, the elemental fit), not the weights: the student's energy
+# scale is the labels' residual spread after the elemental fit (~1e-2 eV),
+# so its forces are ~1e-2 of the teacher's and each loss is nearly the
+# mean square of the targets. The weights are held by the step checks below.
+WORKFLOW_TOL = 1e-5
+# One Trainer step at phase 9's shapes, card vs CPU: the gradient the
+# optimizer reads within TRAIN_TOL per tensor; the weights after the update
+# within UPDATE_TOL x lr of the CPU's Adam given the card's gradient (the
+# same update from the same inputs: f32 rounding of weights up to ~1.3 is
+# ~1.2e-7 = 1.2e-4 lr; a step is at most lr). Control: r1_gather's output
+# scaled by 1 + CONTROL_SCALE, a fault of one part in a thousand.
+UPDATE_TOL = 1e-3
+CONTROL_SCALE = 1e-3
+
+
+def workflow_structures(n: int = WF_TRAIN + WF_TEST, seed: int = 2) -> list:
+    """Perturbed, strained fcc-Cu cells, 2x2x2 and 3x3x3 in turn. The strain
+    is lower triangular, so each lattice is in the standard orientation a
+    CIF's cell parameters rebuild (a along x, b in the xy plane)."""
+    from torch_m3gnet_tpu_torch.data import Structure
+
+    rng = np.random.default_rng(seed)
+    base = Structure.from_frac_coords(
+        np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], [29] * 4)
+    out = []
+    for i in range(n):
+        cell = base.supercell((2, 2, 2) if i % 2 == 0 else (3, 3, 3))
+        lattice = cell.lattice @ (np.eye(3) + np.tril(0.01 * rng.standard_normal((3, 3))))
+        cart = cell.frac_coords @ lattice + 0.05 * rng.standard_normal(cell.cart_coords.shape)
+        out.append(Structure(lattice, cart, cell.atomic_numbers))
+    return out
+
+
+def label_structures(cfg, structures, device, chunk: int = 16) -> None:
+    """E/F/S of a teacher (the same architecture, weights from seed 1) as
+    each structure's targets, in place."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.data import pack_structures
+    from torch_m3gnet_tpu_torch.models import build_model
+
+    teacher = build_model(cfg, device=device, generator=torch.Generator().manual_seed(1))
+    for lo in range(0, len(structures), chunk):
+        part = structures[lo : lo + chunk]
+        out = teacher(pack_structures(part, cfg.cutoff, cfg.threebody_cutoff, pad_multiple=128))
+        e, f, s = (getattr(out, k).detach().cpu().double().numpy()
+                   for k in ("energy", "forces", "stress"))
+        offs = np.cumsum([0] + [len(x) for x in part])
+        for j, x in enumerate(part):
+            x.properties.update(energy=float(e[j]), forces=f[offs[j] : offs[j + 1]], stress=s[j])
+
+
+def cif_of(s) -> str:
+    """A P1 CIF of ``s`` as pymatgen writes one (cell parameters and the
+    fractional atom_site loop)."""
+    lengths = np.linalg.norm(s.lattice, axis=1)
+    a1, a2, a3 = s.lattice
+
+    def angle(u, v):
+        return np.degrees(np.arccos(u @ v / np.linalg.norm(u) / np.linalg.norm(v)))
+
+    head = [f"_cell_length_{k}   {x:.12f}" for k, x in zip("abc", lengths)]
+    head += [f"_cell_angle_{k}   {x:.12f}" for k, x in
+             zip(("alpha", "beta", "gamma"), (angle(a2, a3), angle(a1, a3), angle(a1, a2)))]
+    rows = [f"  Cu  Cu{i}  1  {x:.12f}  {y:.12f}  {z:.12f}  1"
+            for i, (x, y, z) in enumerate(s.frac_coords)]
+    return "\n".join(["data_Cu", "_symmetry_space_group_name_H-M   'P 1'", *head, "loop_",
+                      " _atom_site_type_symbol", " _atom_site_label",
+                      " _atom_site_symmetry_multiplicity", " _atom_site_fract_x",
+                      " _atom_site_fract_y", " _atom_site_fract_z", " _atom_site_occupancy",
+                      *rows, ""])
+
+
+def write_workflow_data(root, structures) -> tuple[str, str]:
+    """The labelled cells as an mlearn set (``training.json``: the first
+    WF_TRAIN, ``test.json``: the rest; stresses in kbar, VASP order) and as
+    MPF block pickles (trajectories of WF_FRAMES frames per material id,
+    CIF strings); returns their directories."""
+    import os
+    import pickle
+
+    from torch_m3gnet_tpu_torch.data.io import KBAR_PER_EV_A3
+
+    mlearn, mpf = os.path.join(root, "mlearn_Cu"), os.path.join(root, "mpf")
+    os.makedirs(mlearn)
+    os.makedirs(mpf)
+
+    def record(s):
+        p = s.properties
+        return {"structure": {"lattice": {"matrix": s.lattice.tolist()},
+                              "sites": [{"abc": f.tolist(), "species": [{"element": "Cu"}]}
+                                        for f in s.frac_coords]},
+                "outputs": {"energy": p["energy"], "forces": p["forces"].tolist(),
+                            # model Voigt [xx,yy,zz,yz,zx,xy] -> VASP [xx,yy,zz,xy,yz,zx]
+                            "virial_stress": (p["stress"][[0, 1, 2, 5, 3, 4]]
+                                              * KBAR_PER_EV_A3).tolist()}}
+
+    for name, part in (("training", structures[:WF_TRAIN]), ("test", structures[WF_TRAIN:])):
+        with open(os.path.join(mlearn, f"{name}.json"), "w") as f:
+            json.dump([record(s) for s in part], f)
+    blocks: list[dict] = [{}, {}]
+    for m in range(0, len(structures), WF_FRAMES):
+        traj = structures[m : m + WF_FRAMES]
+        blocks[(m // WF_FRAMES) % 2][f"mp-{1000 + m}"] = {
+            "structure": [cif_of(s) for s in traj],
+            "energy": [s.properties["energy"] for s in traj],
+            "force": [s.properties["forces"] for s in traj],
+            "stress": [KBAR_PER_EV_A3 * np.array([[v[0], v[5], v[4]], [v[5], v[1], v[3]],
+                                                  [v[4], v[3], v[2]]])
+                       for v in (s.properties["stress"] for s in traj)],
+        }
+    for i, block in enumerate(blocks):
+        with open(os.path.join(mpf, f"block_{i}_cif.p"), "wb") as f:
+            pickle.dump(block, f)
+    return mlearn, mpf
+
+
+def recording_trainer():
+    """A Trainer that records the start of each train step and its batch's
+    padded shape, and counts its eval steps; its instances in order."""
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    class RecordingTrainer(Trainer):
+        instances: list = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.step_starts, self.step_shapes, self.evals = [], [], 0
+            RecordingTrainer.instances.append(self)
+
+        def train_step(self, batch, lr=None):
+            self.step_starts.append(time.perf_counter())
+            self.step_shapes.append((batch.num_nodes, batch.num_edges, batch.num_triplets))
+            return super().train_step(batch, lr)
+
+        def eval_step(self, batch):
+            self.evals += 1
+            return super().eval_step(batch)
+
+    return RecordingTrainer
+
+
+def cli_metrics(main, argv) -> dict:
+    """Run a training CLI in process; the test metrics it prints."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return json.loads(out.getvalue())["test"]
+
+
+def workflow_run(label, fn, cfg, n_train) -> tuple[dict, object]:
+    """Run ``fn()`` (a CLI or ``train_model``; it returns the test metrics)
+    with the recording Trainer in ``train.run``, every launch count set to
+    0 just before it: the launches must be those of its train and eval
+    steps exactly. Returns the run's numbers and its trainer."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.train import run
+
+    cls, saved = recording_trainer(), run.Trainer
+    run.Trainer = cls
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        test = fn()
+        torch.cuda.synchronize()
+    finally:
+        run.Trainer = saved
+    wall_s = time.perf_counter() - t0
+    launches = all_launches()
+    (trainer,) = cls.instances
+    steps, evals = len(trainer.step_starts), trainer.evals
+    mode = trainer.potential.model.threebody_mode
+    per_train = expected_launches(mode, cfg.num_blocks, True)
+    per_eval = expected_launches(mode, cfg.num_blocks, False)
+    want = {k: steps * per_train[k] + evals * per_eval[k] for k in per_train}
+    print(f"  {label}: {steps} train steps, {evals} eval steps, {wall_s:.1f} s; "
+          f"launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    rows = [json.loads(line) for line in
+            open(f"{trainer.log_dir}/metrics.jsonl").read().splitlines()]
+    epoch_s = [r["time"] for r in rows]
+    per_epoch = steps // len(rows)
+    periods = np.diff(trainer.step_starts[-per_epoch:])[2:] * 1e3
+    if not all(np.isfinite(v) for v in test.values()):
+        raise AssertionError(f"{label}: test metrics not finite: {test}")
+    return {
+        "wall_s": wall_s, "epoch_s": epoch_s, "train_steps": steps, "eval_steps": evals,
+        "steps_per_s": per_epoch / epoch_s[-1], "structures_per_s": n_train / epoch_s[-1],
+        "step_ms_median": float(np.median(periods)) if len(periods) else None,
+        "train_loss": [r["train_loss"] for r in rows], "test_loss": test["loss"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+        "padded_shapes": sorted(set(trainer.step_shapes)),
+    }, trainer
+
+
+def check_restore(trainer, cfg, ckpt_dir, batch) -> None:
+    """``last`` restored into a fresh potential: its evaluation of one test
+    batch equals the trainer's bit for bit (deterministic algorithms, so
+    that torch's ``index_add`` sums in one order)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    path = f"{ckpt_dir}/last"
+    meta = Trainer.load_meta(path)
+    fresh = build_model(cfg, elemental_energies=meta["elemental_energies"],
+                        energy_scale=meta["energy_scale"], device="cuda")
+    fresh.load_state_dict(Trainer.load_params(path))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, want = fresh(batch), trainer.potential(batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in ("energy", "forces", "stress"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"restored {name} differs from the trainer's")
+    print("  last checkpoint restored into a fresh potential: E, F, S of a test batch "
+          "bitwise equal to the trainer's")
+
+
+def prefetch_pair(cfg, graphs) -> dict:
+    """One epoch with ``prefetch=2`` and one with ``prefetch=0`` from the same
+    seeded weights and batch order, deterministic algorithms on: bitwise
+    equal weights. Then, deterministic algorithms off, the step period
+    (median after each epoch's first 2 steps) with ``prefetch`` 2 and 0 in
+    turns (2, 0, 0, 2, twice; one epoch each); the device's busy share of
+    one profiled epoch; the producer's host work per batch (assembly;
+    checks, pinned copy and index to the event)."""
+    import tempfile
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.data import BucketSpec, batch_iterator
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.train import prefetch
+
+    bucket = BucketSpec.for_batches(graphs, cfg.batch_size, cfg.pad_multiple)
+
+    def batches(seed):
+        return lambda epoch: batch_iterator(graphs, cfg.batch_size, bucket,
+                                            np.random.default_rng(seed))
+
+    def epoch(pot, depth, seed):
+        with tempfile.TemporaryDirectory() as logs:
+            trainer = cls(pot, cfg, log_dir=logs, prefetch=depth)
+            trainer.fit(batches(seed), max_epochs=1)
+        torch.cuda.synchronize()
+        return trainer
+
+    cls = recording_trainer()
+    weights = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for depth in (2, 0):
+            pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+            epoch(pot, depth, 0)
+            weights[depth] = {k: v.clone() for k, v in pot.state_dict().items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(weights[0][k], weights[2][k]) for k in weights[0])
+    print(f"  prefetch 2 vs 0, one epoch each, deterministic algorithms: weights bitwise "
+          f"equal {same}")
+    if not same:
+        raise AssertionError("training with prefetch=2 and prefetch=0 gave different weights")
+    turns = {2: [], 0: []}
+    for depth in (2, 0, 0, 2) * 2:
+        periods = np.diff(epoch(pot, depth, 3).step_starts)[2:] * 1e3
+        turns[depth].append(float(np.median(periods)))
+    step_ms = {d: float(np.median(t)) for d, t in turns.items()}
+    print(f"  step period (median of each epoch), prefetch 2: {turns[2]} ms; prefetch 0: "
+          f"{turns[0]} ms")
+
+    with tempfile.TemporaryDirectory() as logs:
+        trainer = cls(pot, cfg, log_dir=logs, prefetch=2)
+        t0 = time.perf_counter()
+        trainer.fit(batches(1), max_epochs=1)
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        trainer.epoch = 0
+        profile = profile_step(lambda: trainer.fit(batches(1), max_epochs=1), epoch_ms, steps=1)
+
+    assembly, to_card = [], []
+    stream = torch.cuda.Stream()
+    it = batches(2)(0)
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        if b is None:
+            break
+        t1 = time.perf_counter()
+        _, event = prefetch._to_card(b, torch.device("cuda"), stream,
+                                     torch.cuda.current_stream(), pot.model.batch_index)
+        event.synchronize()
+        assembly.append((t1 - t0) * 1e3)
+        to_card.append((time.perf_counter() - t1) * 1e3)
+    host = {"assembly_ms": statistics.median(assembly),
+            "checks_copy_index_ms": statistics.median(to_card)}
+    print(f"  profiled epoch: busy share {profile['busy_share']:.3f} of {epoch_ms:.0f} ms; "
+          f"producer per batch {host}")
+    return {"bitwise_equal": same, "step_ms_prefetch2": step_ms[2],
+            "step_ms_prefetch0": step_ms[0], "turns_ms": {str(d): t for d, t in turns.items()},
+            "epoch_ms": epoch_ms,
+            "busy_share": profile["busy_share"],
+            "device_busy_ms": profile["device_busy_ms_per_step"],
+            "kernel_launches": profile["kernel_launches_per_step"], "producer": host}
+
+
+def card_vs_cpu(cfg, train_graphs, test_graphs) -> dict:
+    """A 2-step ``train_model`` (f32) on 16 cells, on the card and on the CPU
+    with the same seeded weights: the epoch's train loss and the test loss
+    within WORKFLOW_TOL (weights are not compared: Adam turns f32 noise in
+    near-zero gradients into O(lr) weight differences)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.train.run import train_model
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            _, _, test = train_model(cfg.replace(root=root, accumulate_grad_batches=1),
+                                     train_graphs, [], test_graphs, max_epochs=1,
+                                     device=device)
+            with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
+                row = json.loads(f.read())
+            out[device] = (torch.tensor([row["train_loss"], test["loss"]]),
+                           time.perf_counter() - t0)
+    print(f"  CPU run: {out['cpu'][1]:.1f} s")
+    err = check("train_model train and test loss, card vs CPU (2 steps)", out["cuda"][0],
+                out["cpu"][0], WORKFLOW_TOL)
+    return {"losses_card": out["cuda"][0].tolist(), "losses_cpu": out["cpu"][0].tolist(),
+            "max_abs_err": err}
+
+
+def trainer_step(pot, cfg, batch) -> tuple[list, list, list, float]:
+    """One ``Trainer`` step (no accumulation) on the host ``batch``: the
+    weights before it, the gradient the optimizer read, the weights after
+    it, and the step's loss."""
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    trainer = Trainer(pot, cfg.replace(accumulate_grad_batches=1))
+    before = [p.detach().clone() for p in trainer.params]
+    grads, step = [], trainer.optimizer.step
+
+    def record(*args, **kwargs):
+        grads.extend(p.grad.detach().clone() for p in trainer.params)
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = record
+    loss = float(trainer.train_step(batch)["loss"])
+    return before, grads, [p.detach().clone() for p in trainer.params], loss
+
+
+def step_errors(cfg, cpu_grads, before, grads, after) -> tuple[float, float]:
+    """(gradient error, update error) of a card step: each gradient against
+    the CPU's, over its tensor's largest magnitude (the worst tensor); the
+    weights after the step against the CPU's Adam given the same weights
+    and gradient, over lr."""
+    from torch_m3gnet_tpu_torch.train.loop import make_optimizer
+
+    ref = [w.cpu().clone().requires_grad_(True) for w in before]
+    opt = make_optimizer(ref, cfg)
+    for p, g in zip(ref, grads):
+        p.grad = g.cpu()
+    opt.step()
+    grad_err = max(rel_err(g.cpu(), c)[1] for g, c in zip(grads, cpu_grads))
+    update_err = max(float((a.cpu().double() - r.detach().double()).abs().max())
+                     for a, r in zip(after, ref)) / cfg.learning_rate
+    return grad_err, update_err
+
+
+def stage_vjp_vs_f64(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, float]:
+    """The stage VJP of ``check_kernels`` on unmasked inputs, the kernels'
+    and the plain version's (both f32) each against the plain version in
+    f64, the worst of d_sh and d_gm relative to its largest magnitude: a
+    reading of which f32 sum a padded batch's long run puts off."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
+
+    sh, gm, _ = stage_inputs(num_nodes, src.shape[0], l_max, n_max, src.device)
+
+    def grads(q, r1, dtype):
+        s, g = (x.to(dtype).clone().requires_grad_(True) for x in (sh, gm))
+        proj = r1(q(s, g, src, num_nodes, l_max, n_max), s, src, l_max, n_max)
+        return torch.autograd.grad(torch.sin(proj - g).sum(), (s, g))
+
+    exact = grads(fs.q_scatter_plain, fs.r1_gather_plain, torch.float64)
+    return {name: max(rel_err(got, want)[1]
+                      for got, want in zip(grads(q, r1, torch.float32), exact))
+            for name, q, r1 in (("kernel", fs.q_scatter, fs.r1_gather),
+                                ("plain_f32", fs.q_scatter_plain, fs.r1_gather_plain))}
+
+
+def scaled_r_gather(r_forward, op: str, scale: float):
+    """``factorized_stage._r_forward`` with ``op``'s output scaled: a kernel
+    that is wrong by ``scale - 1``, for a control."""
+
+    def wrong(name, *args):
+        out = r_forward(name, *args)
+        return out * scale if name == op else out
+
+    return wrong
+
+
+def workflow_step_checks(cfg, graphs, device: str = "cuda") -> dict:
+    """Phase 9's shapes held where the losses cannot hold them: the bucket
+    of batch 8 and the first batch of a 3-class ladder's smallest class.
+
+    At each shape every kernel of the path against its plain version, as
+    phase 3 does at the bench shape, with inputs zero where the model's are
+    (padded edges and triplets: over a third of the bucket's edges are
+    padding, all on one node, and an unmasked random sum there is a long
+    f32 run whose rounding the VJPs' sin turns into phase errors; read at
+    the bucket, unmasked, against f64). Then one ``Trainer`` step of the
+    student as ``train_model`` builds it (the elemental fit and energy
+    scale of ``graphs``, weights from ``cfg.seed``), on ``device`` against
+    the CPU: factorized at both shapes, fused at the bucket. The loss within
+    MODEL_TOL, the gradient the optimizer read within TRAIN_TOL, the update
+    within UPDATE_TOL. Controls that must fail: the negated gradient, the
+    update skipped (the weights as before) and (factorized bucket) a step
+    whose r1_gather is off by CONTROL_SCALE. A step whose r2_gather is off
+    by 1e-2 is read, not asserted: its only use is the forces' angular part."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.data import BucketSpec, batch_iterator, to_torch
+    from torch_m3gnet_tpu_torch.data.dataset import BucketLadder, ladder_batch_iterator
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.ops import factorized_stage
+    from torch_m3gnet_tpu_torch.train.elemental import fit_elemental_energies
+
+    elemental, scale = fit_elemental_energies(graphs, cfg.num_types)
+    bucket = BucketSpec.for_batches(graphs, cfg.batch_size, cfg.pad_multiple)
+    ladder = BucketLadder.build(graphs, cfg.batch_size, 3, cfg.pad_multiple)
+    batches = {"bucket": next(batch_iterator(graphs, cfg.batch_size, bucket)),
+               "ladder class 0": next(ladder_batch_iterator(graphs, cfg.batch_size, ladder))}
+    kernels = {}
+    for where, batch in batches.items():
+        print(f"  kernels vs plain at the {where} shape (N, E, T) = "
+              f"{(batch.num_nodes, batch.num_edges, batch.num_triplets)}")
+        gb = to_torch(batch, device, torch.float32)
+        errs = check_kernels(gb.edge_src, gb.num_nodes, cfg.l_max, cfg.n_max, gb.edge_mask)
+        errs.update(check_triplet_kernels(gb, cfg.l_max * cfg.n_max, masked=True))
+        errs["sorted_segment_sum"] = check_sorted_segment(gb, masked=True)
+        kernels[where] = errs
+    gb = to_torch(batches["bucket"], device, torch.float32)
+    unmasked = stage_vjp_vs_f64(gb.edge_src, gb.num_nodes, cfg.l_max, cfg.n_max)
+    print(f"  stage VJP at the bucket, unmasked (read, not asserted): against f64, kernels "
+          f"{unmasked['kernel']:.3e}, plain f32 {unmasked['plain_f32']:.3e}; padded edges "
+          f"{gb.num_edges - int(gb.edge_mask.sum())} of {gb.num_edges}; most edges on one node "
+          f"{int(torch.bincount(gb.edge_src.long()).max())}")
+    print(f"  student energy scale {scale:.4e} eV (the labels' residual spread)")
+
+    def fail(label, err, tol):
+        print(f"    control {label}: {err:.3e} (tol {tol:.0e}) "
+              f"{'fails, as it must' if err > tol else 'PASSES'}")
+        if not err > tol:
+            raise AssertionError(f"control {label} passed the check: {err:.3e} <= {tol:.0e}")
+        return err
+
+    def wrong_step(student, cfg_m, batch, op, by):
+        saved = factorized_stage._r_forward
+        factorized_stage._r_forward = scaled_r_gather(saved, op, 1 + by)
+        try:
+            return trainer_step(student(), cfg_m, batch)
+        finally:
+            factorized_stage._r_forward = saved
+
+    out = []
+    for mode, where in (("factorized", "bucket"), ("fused", "bucket"),
+                        ("factorized", "ladder class 0")):
+        cfg_m, batch = cfg.replace(threebody_mode=mode), batches[where]
+
+        def student():
+            return build_model(cfg_m, elemental_energies=list(map(float, elemental)),
+                               energy_scale=scale, device=device,
+                               generator=torch.Generator().manual_seed(cfg.seed))
+
+        pot = student()
+        cpu = build_model(cfg_m, elemental_energies=list(map(float, elemental)),
+                          energy_scale=scale, device="cpu")
+        cpu.load_state_dict(pot.state_dict())
+        before, grads, after, loss = trainer_step(pot, cfg_m, batch)
+        cpu_loss, cpu_grads = loss_and_grads(cpu, batch, cfg_m)
+        cpu_grads = list(cpu_grads.values())
+        del cpu
+        label = f"{mode} step, {where}"
+        check(f"{label}: loss vs CPU", torch.tensor([loss]), cpu_loss.reshape(1).double(),
+              MODEL_TOL)
+        grad_err, update_err = step_errors(cfg_m, cpu_grads, before, grads, after)
+        ok = grad_err <= TRAIN_TOL and update_err <= UPDATE_TOL
+        print(f"  {label}: gradient vs CPU {grad_err:.3e} (tol {TRAIN_TOL:.0e}), update vs "
+              f"CPU Adam {update_err:.3e} lr (tol {UPDATE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: gradient {grad_err:.3e}, update {update_err:.3e}")
+        row = {"mode": mode, "batch": where, "loss": loss, "loss_cpu": float(cpu_loss),
+               "grad_err": grad_err, "update_err": update_err,
+               "control_negated_grad": fail(
+                   "negated gradient", step_errors(cfg_m, cpu_grads, before,
+                                                   [-g for g in grads], after)[0], TRAIN_TOL),
+               "control_skipped_update": fail(
+                   "skipped update", step_errors(cfg_m, cpu_grads, before, grads, before)[1],
+                   UPDATE_TOL)}
+        if mode == "factorized" and where == "bucket":
+            wrong = wrong_step(student, cfg_m, batch, "r1_gather", CONTROL_SCALE)
+            row["control_r1_off"] = fail(f"r1_gather off by {CONTROL_SCALE:.0e}",
+                                         step_errors(cfg_m, cpu_grads, *wrong[:3])[0], TRAIN_TOL)
+            wrong = wrong_step(student, cfg_m, batch, "r2_gather", 1e-2)
+            row["reading_r2_off_1e-2"] = step_errors(cfg_m, cpu_grads, *wrong[:3])[0]
+            print(f"    r2_gather off by 1e-2 (read, not asserted): gradient "
+                  f"{row['reading_r2_off_1e-2']:.3e}")
+        out.append(row)
+    return {"energy_scale": scale,
+            "shapes": {w: [b.num_nodes, b.num_edges, b.num_triplets] for w, b in batches.items()},
+            "kernels_max_abs_err": kernels, "stage_vjp_unmasked_vs_f64": unmasked,
+            "steps": out}
+
+
+def check_workflow(name, smi) -> dict:
+    """Phase 9: the training workflow on the card (see the module docstring)."""
+    import importlib
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.cli import train_mlearn, train_mpf
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.data import BucketSpec, batch_iterator
+    from torch_m3gnet_tpu_torch.data.dataset import GraphDataset, build_graphs
+    from torch_m3gnet_tpu_torch.data.io import load_mlearn_json, load_mpf_pickles
+    from torch_m3gnet_tpu_torch.data.streaming import StreamingGraphDataset, ladder_from_index
+    from torch_m3gnet_tpu_torch.train.run import train_model
+
+    configs = Path(__file__).resolve().parent / "configs"
+    info = {"card": name, "nvidia_smi": smi}
+    for module in ("yaml", "tensorboard"):
+        try:
+            importlib.import_module(module)
+            info[f"{module}_imports"] = True
+        except ImportError:
+            info[f"{module}_imports"] = False
+    print(f"  yaml imports: {info['yaml_imports']}; tensorboard imports: "
+          f"{info['tensorboard_imports']}")
+    cfg = M3GNetConfig.from_yaml(str(configs / "mlearn_Cu.yaml"))
+    structures = workflow_structures()
+    label_structures(cfg, structures, "cuda")
+    t0 = time.perf_counter()
+    graphs = list(build_graphs(structures, cfg.cutoff, cfg.threebody_cutoff))
+    info["graph_build_s"] = time.perf_counter() - t0
+    info["structures"] = len(structures)
+    info["atoms"] = sum(len(s) for s in structures)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mlearn, mpf = write_workflow_data(tmp, structures)
+        t0 = time.perf_counter()
+        ds = StreamingGraphDataset(structures, cfg.cutoff, cfg.threebody_cutoff,
+                                   os.path.join(tmp, "shards"), shard_size=WF_SHARD)
+        info["shard_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read = sum(1 for _ in ds.iter_graphs(np.random.default_rng(0)))
+        info["shard_read_s"] = time.perf_counter() - t0
+        if read != len(structures):
+            raise AssertionError(f"the stream yielded {read} of {len(structures)} graphs")
+        print(f"  {len(structures)} cells ({info['atoms']} atoms): graphs {info['graph_build_s']:.2f} s; "
+              f"{ds.n_shards} shards written {info['shard_write_s']:.2f} s, read "
+              f"{info['shard_read_s']:.2f} s")
+        runs = {}
+
+        # The mlearn CLI (configs/mlearn_Cu.yaml), two epochs on the card.
+        root = os.path.join(tmp, "run_mlearn")
+        runs["train-mlearn"], trainer = workflow_run(
+            "train-mlearn (CLI)", lambda: cli_metrics(train_mlearn.main, [
+                "--path", mlearn, "--config", str(configs / "mlearn_Cu.yaml"), "--root", root,
+                "--max-epochs", "2"]), cfg, WF_TRAIN)
+        losses = runs["train-mlearn"]["train_loss"]
+        ckpt = os.path.join(root, "checkpoints")
+        files = set(os.listdir(ckpt))
+        if not ({"best", "last", "best.meta.json", "last.meta.json"} <= files
+                and len(losses) == 2 and losses[1] < losses[0]):
+            raise AssertionError(f"mlearn run: checkpoints {sorted(files)}, train losses {losses}")
+        print(f"  train loss by epoch {losses}; test loss {runs['train-mlearn']['test_loss']:.4e}")
+        test_graphs = GraphDataset(load_mlearn_json(os.path.join(mlearn, "test.json")),
+                                   cfg.cutoff, cfg.threebody_cutoff,
+                                   cache_dir=os.path.join(root, "cache"), name="test").graphs
+        bucket = BucketSpec.for_batches(test_graphs, cfg.batch_size, cfg.pad_multiple)
+        check_restore(trainer, cfg, ckpt, next(batch_iterator(test_graphs, cfg.batch_size,
+                                                              bucket)))
+        train_graphs = GraphDataset(load_mlearn_json(os.path.join(mlearn, "training.json")),
+                                    cfg.cutoff, cfg.threebody_cutoff,
+                                    cache_dir=os.path.join(root, "cache"), name="train").graphs
+
+        # The MPF CLI, streaming (configs/mpf.yaml), one epoch.
+        mpf_cfg = M3GNetConfig.from_yaml(str(configs / "mpf.yaml"))
+        root = os.path.join(tmp, "run_mpf")
+        splits = load_mpf_pickles([os.path.join(mpf, f"block_{i}_cif.p") for i in (0, 1)],
+                                  mpf_cfg.val_ratio, mpf_cfg.test_ratio, mpf_cfg.seed)
+        runs["train-mpf-stream"], _ = workflow_run(
+            "train-mpf-stream (CLI)", lambda: cli_metrics(train_mpf.main, [
+                "--path", mpf, "--config", str(configs / "mpf.yaml"), "--root", root,
+                "--max-epochs", "1", "--shard-size", str(WF_SHARD)]), mpf_cfg, len(splits[0]))
+
+        # The streaming ladder: train_model on the CLI's shard caches.
+        streams = [StreamingGraphDataset(s, mpf_cfg.cutoff, mpf_cfg.threebody_cutoff,
+                                         os.path.join(root, "cache"), name=n,
+                                         shard_size=WF_SHARD)
+                   for s, n in zip(splits, ("train", "val", "test"))]
+        ladder_cfg = mpf_cfg.replace(root=os.path.join(tmp, "run_ladder"), bucket_classes=3)
+        runs["train-ladder"], _ = workflow_run(
+            "train-ladder (train_model, streaming)", lambda: train_model(
+                ladder_cfg, *streams, max_epochs=1)[2], ladder_cfg, len(splits[0]))
+        ladder = ladder_from_index(streams[0], mpf_cfg.batch_size, 3, mpf_cfg.pad_multiple)
+        want = sorted((b.max_nodes, b.max_edges, b.max_triplets) for b in ladder.buckets)
+        got = [tuple(s) for s in runs["train-ladder"]["padded_shapes"]]
+        print(f"  ladder classes (N, E, T): {want}; trained on {got}")
+        if got != want or len(got) != 3:
+            raise AssertionError(f"ladder batches came in {got}, expected the 3 classes {want}")
+
+        # The fused mode through the workflow (B4-B8), one epoch in memory.
+        fused_cfg = cfg.replace(root=os.path.join(tmp, "run_fused"), threebody_mode="fused")
+        runs["train-fused-workflow"], _ = workflow_run(
+            "train-fused-workflow (train_model, in memory)", lambda: train_model(
+                fused_cfg, train_graphs, test_graphs, test_graphs, max_epochs=1)[2],
+            fused_cfg, WF_TRAIN)
+    info["runs"] = runs
+
+    info["prefetch"] = prefetch_pair(cfg, train_graphs)
+    info["card_vs_cpu"] = card_vs_cpu(cfg, train_graphs[:16], test_graphs)
+    info["step_checks"] = workflow_step_checks(cfg, train_graphs)
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -1544,6 +2244,9 @@ def main() -> int:
     sim.update(check_relax(pot, structures[:RELAX_GRAPHS]))
     sim.update(check_elastic(pot, cfg))
     print(json.dumps({"simulate": sim}))
+
+    print("== 9. train workflow (CLIs, train_model, streams, prefetch)")
+    print(json.dumps({"workflow": check_workflow(name, smi)}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

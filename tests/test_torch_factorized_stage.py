@@ -231,9 +231,10 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port (the simulation path and the native loader
-    among them), imported in a fresh interpreter, loads no module of jax,
-    flax or torch_m3gnet_tpu, and no logging package."""
+    """Every module of the port (the simulation path, the native loader, the
+    training workflow and its CLIs among them), imported in a fresh
+    interpreter, loads no module of jax, flax or torch_m3gnet_tpu, and no
+    logging package (the Trainer imports TensorBoard only when asked)."""
     code = """
 import importlib, pkgutil, sys
 import torch_m3gnet_tpu_torch as pkg
@@ -248,9 +249,10 @@ for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "
              "ops.sorted_segment", "data.dataset", "train.loop", "train.metrics",
              "train.elemental", "native", "data.neighborlist", "data.triplets", "simulate",
              "simulate.relax", "simulate.md", "simulate.observables", "simulate.eos",
-             "simulate.elastic"):
+             "simulate.elastic", "data.io", "data.streaming", "train.prefetch", "train.run",
+             "cli", "cli.train_mlearn", "cli.train_mpf"):
     assert pkg.__name__ + "." + name in names, name
-assert len(names) >= 27, names
+assert len(names) >= 34, names
 logging = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("tensorboard", "tensorboardX", "wandb", "mlflow"))
 assert not logging, logging

@@ -3,15 +3,15 @@
 The dataclass is an own copy, field for field, so ``configs/*.yaml`` load
 into either package. Fields that exist only for the TPU build are accepted
 and ignored by this port: ``fused_factorized``, ``pallas_segment``,
-``fuse_gated_second``, ``matmul_precision`` and ``bucket_classes``; of
+``fuse_gated_second`` and ``matmul_precision``; of
 ``layout`` only the check that ``"fm"`` goes with the factorized mode is
 kept; of ``pallas_segment`` only the check of its value. The port always
 computes feature-major with full-f32 matmuls, and its sorted segment sums
 always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
-Two fields are not ported yet, and ``build_model`` raises
-``NotImplementedError`` for anything but their defaults:
-``compute_dtype`` (``"float32"`` only) and ``remat_triplets`` (``False``
-only).
+Three fields are not ported yet and raise ``NotImplementedError`` for
+anything but their defaults: ``compute_dtype`` (``"float32"`` only) and
+``remat_triplets`` (``False`` only) in ``build_model``, ``num_devices`` (1
+only) in ``train.run.train_model``.
 """
 
 from __future__ import annotations
@@ -76,8 +76,10 @@ class M3GNetConfig:
     # Ignored by the port: the factorized stage always runs the CUDA
     # kernels on a CUDA device and their plain versions on the CPU.
     fused_factorized: str = "auto"
-    # Ignored by the port (size-class bucketing of the data pipeline).
+    # Size classes of the training batches (data.dataset.BucketLadder); 1:
+    # one worst-case bucket.
     bucket_classes: int = 1
+    # Data-parallel devices of train_model; only 1 in this port so far.
     num_devices: int = 1
     # Ignored by the port beyond a value check (TPU Pallas segment-sum knob):
     # the sorted segment sums always run the sorted-segment kernel.

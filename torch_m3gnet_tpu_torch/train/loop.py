@@ -14,14 +14,17 @@ Counterpart of ``torch_m3gnet_tpu.train.loop``:
 - the per-epoch closed-form cosine schedule of torch's
   ``CosineAnnealingLR``, set on the optimizer's param groups;
 - early stopping on ``val_loss`` with patience, best and last checkpoints
-  (``torch.save``, with the ``.meta.json`` sidecar of the model constants).
+  (``torch.save``, with the ``.meta.json`` sidecar of the model constants);
+- the epoch loops read their batches through ``train.prefetch`` (``prefetch``
+  batches ahead; 0 turns it off); optional TensorBoard scalars and
+  histograms, and per-tensor weight norms in ``metrics.jsonl`` under the
+  JAX package's key names (``param_norm/params/atom_embed/embedding``).
 
 A training step differentiates forces and stress, themselves a gradient:
 the potential runs with ``create_graph=True`` and the loss's backward goes
 through every kernel's VJP of a VJP.
 
-Not here yet: device prefetch, TensorBoard and parameter-statistics logging,
-``train_model`` (``train/run.py``) and the data- and graph-parallel steps.
+Not here yet: the data- and graph-parallel steps.
 """
 
 from __future__ import annotations
@@ -32,13 +35,14 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import torch
 
 from torch_m3gnet_tpu_torch.config import M3GNetConfig
 from torch_m3gnet_tpu_torch.data.graph import to_torch
 from torch_m3gnet_tpu_torch.train.metrics import MetricAccumulator
+from torch_m3gnet_tpu_torch.train.prefetch import device_prefetch
 
 
 def masked_mse(pred, target, mask):
@@ -135,10 +139,29 @@ class Trainer:
     optionally forces and stress.
     """
 
-    def __init__(self, potential, config: M3GNetConfig, log_dir: Optional[str] = None):
+    def __init__(
+        self,
+        potential,
+        config: M3GNetConfig,
+        log_dir: Optional[str] = None,
+        log_tensorboard: bool = False,
+        log_param_stats: bool = False,
+        prefetch: int = 2,
+    ):
         self.potential = potential
         self.config = config
         self.log_dir = log_dir or os.path.join(config.root, "logs")
+        self.log_param_stats = log_param_stats
+        # Batches prepared ahead by train.prefetch in fit and evaluate; 0: none.
+        self.prefetch = prefetch
+        self._tb = None
+        if log_tensorboard:
+            try:  # imported here: importing the port loads no logging package
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                pass  # as in the JAX package: no TensorBoard, no TensorBoard log
+            else:
+                self._tb = SummaryWriter(self.log_dir)
         self.params = list(potential.parameters())
         self.optimizer = make_optimizer(self.params, config)
         self.accumulate = max(int(config.accumulate_grad_batches), 1)
@@ -211,7 +234,7 @@ class Trainer:
             lr = cosine_annealing_lr(epoch, cfg.learning_rate, cfg.decay_steps, cfg.decay_alpha)
             t0 = time.time()
             acc = MetricAccumulator()
-            for batch in train_batches(epoch):
+            for batch in self._prefetched(train_batches(epoch)):
                 metrics = self.train_step(batch, lr)
                 acc.update({k: float(v) for k, v in metrics.items()},
                            weight=max(batch.num_graphs_real, 1))
@@ -234,9 +257,20 @@ class Trainer:
                 else:
                     patience_left -= 1
 
+            if self.log_param_stats:
+                for name, p in self._named_weights():
+                    row[f"param_norm/{name}"] = float(torch.linalg.vector_norm(p.detach()))
             if epoch % log_every == 0:
                 with open(log_path, "a") as f:
                     f.write(json.dumps(row) + "\n")
+            if self._tb is not None:
+                for k, val in row.items():
+                    if isinstance(val, (int, float)):
+                        self._tb.add_scalar(k, val, epoch)
+                if self.log_param_stats:
+                    for name, p in self._named_weights():
+                        self._tb.add_histogram(name, p.detach().cpu().numpy(), epoch)
+                self._tb.flush()
             if checkpoint_dir:
                 self.save_checkpoint(checkpoint_dir, tag="last")
             if val_batches is not None and patience_left <= 0:
@@ -245,10 +279,23 @@ class Trainer:
 
     def evaluate(self, batches: Iterable) -> dict[str, float]:
         acc = MetricAccumulator()
-        for batch in batches:
+        for batch in self._prefetched(batches):
             acc.update({k: float(v) for k, v in self.eval_step(batch).items()},
                        weight=max(batch.num_graphs_real, 1))
         return acc.compute()
+
+    def _prefetched(self, batches: Iterable) -> Iterator:
+        """``batches`` prepared ``self.prefetch`` ahead on the weights'
+        device, with the kernel index of the model's mode."""
+        model = getattr(self.potential, "model", None)
+        return device_prefetch(batches, self.prefetch, self.params[0].device,
+                               index=getattr(model, "batch_index", ()))
+
+    def _named_weights(self):
+        """(name, weight) in the JAX package's spelling of the Flax path:
+        ``model.atom_embed.embedding`` -> ``params/atom_embed/embedding``."""
+        for name, p in self.potential.named_parameters():
+            yield "params/" + name.removeprefix("model.").replace(".", "/"), p
 
     # ------------------------------------------------------------------
     def state(self) -> TrainState:
