@@ -84,7 +84,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    against the CPU. The numbers go into the ``{"simulate": ...}`` line.
 
 9. train workflow: 112 perturbed, strained fcc-Cu cells (half 32, half
-   108 atoms) labelled by a seed-1 teacher on the card, written as an
+   108 atoms; isotropic volume strains up to 5 %) labelled by a seed-1
+   teacher (energy scale 10) on the card, written as an
    mlearn set (96 training, 16 test) and as MPF block pickles (trajectories
    of 4 frames, CIF strings). The mlearn CLI (``configs/mlearn_Cu.yaml``,
    2 epochs), the MPF CLI streaming (``configs/mpf.yaml``, 16-graph shards,
@@ -99,15 +100,31 @@ Phases (each raises on failure, so any failure exits non-zero):
    deterministic algorithms: bitwise equal weights, each step period, the
    busy share of a profiled epoch and the producer's host work per batch;
    and a 2-step ``train_model`` on 16 cells on the card against the CPU
-   (losses within ``WORKFLOW_TOL``). These losses hardly depend on the
-   weights (the student's energy scale, fitted to the labels' spread, is
-   ~1e-2 of the teacher's). So at phase 9's padded shapes (the bucket of
-   batch 8; the ladder's smallest class) every kernel is held against its
-   plain version, and one ``Trainer`` step of that student against the
-   CPU where it acts: its gradient within ``TRAIN_TOL``, its update within
-   ``UPDATE_TOL``; a negated gradient, a skipped update and ``r1_gather``
-   off by ``CONTROL_SCALE`` must each fail. The numbers go into the
-   ``{"workflow": ...}`` line.
+   (losses within ``WORKFLOW_TOL``; the same run on the CPU with its
+   updates skipped must fail it: the losses see the weights). At phase 9's
+   padded shapes (the bucket of batch 8; the ladder's smallest class) every
+   kernel is held against its plain version, and one ``Trainer`` step of
+   the student against the CPU where it acts: its gradient within
+   ``TRAIN_TOL``, its update within ``UPDATE_TOL``; a negated gradient, a
+   skipped update and ``r1_gather`` off by ``CONTROL_SCALE`` must each
+   fail. The numbers go into the ``{"workflow": ...}`` line; the mlearn
+   run's ``best`` checkpoint (the default model) is kept for phase 10.
+
+10. user CLIs and the committee, from that checkpoint and its sidecar, at
+   full width (the default model): ``predict`` on the 32 bench cells in one
+   batch, in the factorized and the fused mode (each run one evaluation's
+   launches), against ``--device cpu`` (``MODEL_TOL``) and fused against
+   factorized (``MODE_TOL``); the card's energies of two cells against the
+   port's numpy oracle at f64 (``ORACLE_TOL``; the oracle with the
+   readout's output kernel off by 1e-3 must fail); a committee of three
+   (the checkpoint, seeds 1 and 2) on the bench batch, launches exactly
+   three evaluations', mean and std bitwise those of three single
+   evaluations, one member's std exactly 0; ``relax`` (FIRE with the cell,
+   8 cells, 20 steps) and ``md`` (NVE, 8 cells, 5 steps) against
+   ``--device cpu`` (``MD_TOL``); ``md`` NPT on the 32 cells for 20 steps
+   with ``--traj-out``, each frame's cell from the volume log; ``elastic
+   --eos`` on a 4-atom cell against ``--device cpu`` (``ELASTIC_TOL``).
+   Each run's wall time goes into the ``{"cli": ...}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
@@ -1448,21 +1465,27 @@ def check_relax(pot, structures) -> dict:
             "relax_atom_fmax": [float(f0.max()), float(f1.max())]}
 
 
+def elastic_cell():
+    """The 4-atom fcc-Cu cell of the second-derivative checks, perturbed."""
+    from torch_m3gnet_tpu_torch.data import Structure
+
+    rng = np.random.default_rng(2)
+    frac = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    return Structure.from_frac_coords(np.eye(3) * 3.62, frac + rng.normal(0, 0.01, (4, 3)),
+                                      [29] * 4)
+
+
 def check_elastic(pot, cfg) -> dict:
     """Phase 8, second derivatives: ``elastic_tensor`` and ``force_constants``
     of a perturbed 4-atom fcc-Cu cell on the card (the double backward, with
     B1-B3 and B8 launched in it) against the same on the CPU, both f32."""
     import torch
 
-    from torch_m3gnet_tpu_torch.data import Structure, pack_structures
+    from torch_m3gnet_tpu_torch.data import pack_structures
     from torch_m3gnet_tpu_torch.models import build_model
     from torch_m3gnet_tpu_torch.simulate import elastic_tensor, force_constants
 
-    rng = np.random.default_rng(2)
-    frac = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
-    cell = Structure.from_frac_coords(np.eye(3) * 3.62, frac + rng.normal(0, 0.01, (4, 3)),
-                                      [29] * 4)
-    batch = pack_structures([cell], 5.0, 4.0, pad_multiple=64)
+    batch = pack_structures([elastic_cell()], 5.0, 4.0, pad_multiple=64)
     cpu_pot = build_model(cfg, device="cpu")
     cpu_pot.load_state_dict(pot.state_dict())
     out = {}
@@ -1492,16 +1515,26 @@ def check_elastic(pot, cfg) -> dict:
 
 # 96 training and 16 test cells, half 2x2x2 (32 atoms), half 3x3x3 (108).
 WF_TRAIN, WF_TEST = 96, 16
+# Each cell's isotropic volume strain is uniform in +-WF_VOLUME_STRAIN (on
+# top of a 1 % shear and a 0.05 A jitter), and the teacher's energy scale is
+# TEACHER_SCALE: the seeded teacher's energies barely depend on geometry (at
+# scale 1, 0.034-0.036 eV/atom across +-5 % volume; forces ~2e-3 eV/A rms),
+# so the labels' residual spread after the elemental fit, which becomes the
+# student's energy scale, is 7.8e-3 eV with the shear alone and ~5e-2 with
+# the strain. Scaled by 10 the spread is on the eV scale, the student's
+# energy scale O(0.1-1), and its outputs are on the labels' scale: the
+# losses see the weights (a 2-step run and one whose updates are skipped
+# differ by ~40 %, the two modes' losses by ~2e-7; CPU rehearsal).
+WF_VOLUME_STRAIN, TEACHER_SCALE = 0.05, 10.0
 # MPF trajectories: frames per material id; stream shard size.
 WF_FRAMES, WF_SHARD = 4, 16
 # Card vs CPU for a 2-step train_model (f32 on both): the epoch's train loss
 # and the test loss, as a fraction of the larger. The f32-vs-f64 CPU
 # rehearsal of the same run (16 cells, the default model, CPU teacher
-# labels) read 9.6e-10 apart. These losses hold the data path (batches,
-# targets, masks, the elemental fit), not the weights: the student's energy
-# scale is the labels' residual spread after the elemental fit (~1e-2 eV),
-# so its forces are ~1e-2 of the teacher's and each loss is nearly the
-# mean square of the targets. The weights are held by the step checks below.
+# labels) read 9.6e-10 apart. The losses hold the data path (batches,
+# targets, masks, the elemental fit) and the weights: a control run whose
+# updates are skipped (learning rate 0) must fail this tolerance. The step
+# checks below hold the gradient and the update themselves.
 WORKFLOW_TOL = 1e-5
 # One Trainer step at phase 9's shapes, card vs CPU: the gradient the
 # optimizer reads within TRAIN_TOL per tensor; the weights after the update
@@ -1514,9 +1547,11 @@ CONTROL_SCALE = 1e-3
 
 
 def workflow_structures(n: int = WF_TRAIN + WF_TEST, seed: int = 2) -> list:
-    """Perturbed, strained fcc-Cu cells, 2x2x2 and 3x3x3 in turn. The strain
-    is lower triangular, so each lattice is in the standard orientation a
-    CIF's cell parameters rebuild (a along x, b in the xy plane)."""
+    """Perturbed, strained fcc-Cu cells, 2x2x2 and 3x3x3 in turn: an
+    isotropic volume strain of up to WF_VOLUME_STRAIN and a 1 % shear. The
+    strain is lower triangular, so each lattice is in the standard
+    orientation a CIF's cell parameters rebuild (a along x, b in the xy
+    plane)."""
     from torch_m3gnet_tpu_torch.data import Structure
 
     rng = np.random.default_rng(seed)
@@ -1525,21 +1560,23 @@ def workflow_structures(n: int = WF_TRAIN + WF_TEST, seed: int = 2) -> list:
     out = []
     for i in range(n):
         cell = base.supercell((2, 2, 2) if i % 2 == 0 else (3, 3, 3))
-        lattice = cell.lattice @ (np.eye(3) + np.tril(0.01 * rng.standard_normal((3, 3))))
+        iso = 1.0 + rng.uniform(-WF_VOLUME_STRAIN, WF_VOLUME_STRAIN)
+        lattice = cell.lattice @ (iso * (np.eye(3) + np.tril(0.01 * rng.standard_normal((3, 3)))))
         cart = cell.frac_coords @ lattice + 0.05 * rng.standard_normal(cell.cart_coords.shape)
         out.append(Structure(lattice, cart, cell.atomic_numbers))
     return out
 
 
 def label_structures(cfg, structures, device, chunk: int = 16) -> None:
-    """E/F/S of a teacher (the same architecture, weights from seed 1) as
-    each structure's targets, in place."""
+    """E/F/S of a teacher (the same architecture, weights from seed 1,
+    energy scale TEACHER_SCALE) as each structure's targets, in place."""
     import torch
 
     from torch_m3gnet_tpu_torch.data import pack_structures
     from torch_m3gnet_tpu_torch.models import build_model
 
-    teacher = build_model(cfg, device=device, generator=torch.Generator().manual_seed(1))
+    teacher = build_model(cfg, energy_scale=TEACHER_SCALE, device=device,
+                          generator=torch.Generator().manual_seed(1))
     for lo in range(0, len(structures), chunk):
         part = structures[lo : lo + chunk]
         out = teacher(pack_structures(part, cfg.cutoff, cfg.threebody_cutoff, pad_multiple=128))
@@ -1640,15 +1677,20 @@ def recording_trainer():
     return RecordingTrainer
 
 
-def cli_metrics(main, argv) -> dict:
-    """Run a training CLI in process; the test metrics it prints."""
+def cli_json(main, argv):
+    """Run a CLI in process; the JSON it prints."""
     import contextlib
     import io
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         main(argv)
-    return json.loads(out.getvalue())["test"]
+    return json.loads(out.getvalue())
+
+
+def cli_metrics(main, argv) -> dict:
+    """Run a training CLI in process; the test metrics it prints."""
+    return cli_json(main, argv)["test"]
 
 
 def workflow_run(label, fn, cfg, n_train) -> tuple[dict, object]:
@@ -1816,7 +1858,9 @@ def card_vs_cpu(cfg, train_graphs, test_graphs) -> dict:
     """A 2-step ``train_model`` (f32) on 16 cells, on the card and on the CPU
     with the same seeded weights: the epoch's train loss and the test loss
     within WORKFLOW_TOL (weights are not compared: Adam turns f32 noise in
-    near-zero gradients into O(lr) weight differences)."""
+    near-zero gradients into O(lr) weight differences). Control: the CPU run
+    with its updates skipped (learning rate 0) must fail that tolerance, its
+    test loss visibly higher: the losses see the weights."""
     import os
     import tempfile
 
@@ -1825,21 +1869,31 @@ def card_vs_cpu(cfg, train_graphs, test_graphs) -> dict:
     from torch_m3gnet_tpu_torch.train.run import train_model
 
     out = {}
-    for device in ("cuda", "cpu"):
+    for label, device, lr in (("cuda", "cuda", cfg.learning_rate),
+                              ("cpu", "cpu", cfg.learning_rate), ("cpu_lr0", "cpu", 0.0)):
         with tempfile.TemporaryDirectory() as root:
             t0 = time.perf_counter()
-            _, _, test = train_model(cfg.replace(root=root, accumulate_grad_batches=1),
+            _, _, test = train_model(cfg.replace(root=root, accumulate_grad_batches=1,
+                                                 learning_rate=lr),
                                      train_graphs, [], test_graphs, max_epochs=1,
                                      device=device)
             with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
                 row = json.loads(f.read())
-            out[device] = (torch.tensor([row["train_loss"], test["loss"]]),
-                           time.perf_counter() - t0)
-    print(f"  CPU run: {out['cpu'][1]:.1f} s")
+            out[label] = (torch.tensor([row["train_loss"], test["loss"]]),
+                          time.perf_counter() - t0)
+    print(f"  CPU runs: {out['cpu'][1]:.1f} s, {out['cpu_lr0'][1]:.1f} s")
     err = check("train_model train and test loss, card vs CPU (2 steps)", out["cuda"][0],
                 out["cpu"][0], WORKFLOW_TOL)
+    control = rel_err(out["cuda"][0], out["cpu_lr0"][0])[1]
+    higher = bool(out["cpu_lr0"][0][1] > out["cuda"][0][1] * (1 + WORKFLOW_TOL))
+    print(f"    control updates skipped (lr 0): {control:.3e} (tol {WORKFLOW_TOL:.0e}), test "
+          f"loss {float(out['cpu_lr0'][0][1]):.4e} vs {float(out['cuda'][0][1]):.4e} "
+          f"{'fails, as it must' if control > WORKFLOW_TOL and higher else 'PASSES'}")
+    if not (control > WORKFLOW_TOL and higher):
+        raise AssertionError(f"control with skipped updates passed the loss check: {control:.3e}")
     return {"losses_card": out["cuda"][0].tolist(), "losses_cpu": out["cpu"][0].tolist(),
-            "max_abs_err": err}
+            "max_abs_err": err, "losses_cpu_lr0": out["cpu_lr0"][0].tolist(),
+            "control_lr0_rel": control}
 
 
 def trainer_step(pot, cfg, batch) -> tuple[list, list, list, float]:
@@ -2026,10 +2080,13 @@ def workflow_step_checks(cfg, graphs, device: str = "cuda") -> dict:
             "steps": out}
 
 
-def check_workflow(name, smi) -> dict:
-    """Phase 9: the training workflow on the card (see the module docstring)."""
+def check_workflow(name, smi, keep: str | None = None) -> dict:
+    """Phase 9: the training workflow on the card (see the module docstring).
+    With ``keep`` (a directory), the mlearn run's ``best`` checkpoint and its
+    sidecar are copied there."""
     import importlib
     import os
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -2041,6 +2098,7 @@ def check_workflow(name, smi) -> dict:
     from torch_m3gnet_tpu_torch.data.dataset import GraphDataset, build_graphs
     from torch_m3gnet_tpu_torch.data.io import load_mlearn_json, load_mpf_pickles
     from torch_m3gnet_tpu_torch.data.streaming import StreamingGraphDataset, ladder_from_index
+    from torch_m3gnet_tpu_torch.train.elemental import fit_elemental_energies
     from torch_m3gnet_tpu_torch.train.run import train_model
 
     configs = Path(__file__).resolve().parent / "configs"
@@ -2061,6 +2119,16 @@ def check_workflow(name, smi) -> dict:
     info["graph_build_s"] = time.perf_counter() - t0
     info["structures"] = len(structures)
     info["atoms"] = sum(len(s) for s in structures)
+    per_atom = [s.properties["energy"] / len(s) for s in structures]
+    info["labels"] = {
+        "energy_scale": fit_elemental_energies(graphs[:WF_TRAIN], cfg.num_types)[1],
+        "e_per_atom_ev": [min(per_atom), max(per_atom)],
+        "force_rms_ev_a": float(np.sqrt(np.mean(np.concatenate(
+            [s.properties["forces"].ravel() for s in structures]) ** 2))),
+    }
+    print(f"  labels (teacher scale {TEACHER_SCALE:g}, volume strain +-{WF_VOLUME_STRAIN:g}): "
+          f"residual spread after the elemental fit (the student's energy scale) "
+          f"{info['labels']['energy_scale']:.4e} eV; {info['labels']}")
 
     with tempfile.TemporaryDirectory() as tmp:
         mlearn, mpf = write_workflow_data(tmp, structures)
@@ -2091,6 +2159,9 @@ def check_workflow(name, smi) -> dict:
                 and len(losses) == 2 and losses[1] < losses[0]):
             raise AssertionError(f"mlearn run: checkpoints {sorted(files)}, train losses {losses}")
         print(f"  train loss by epoch {losses}; test loss {runs['train-mlearn']['test_loss']:.4e}")
+        if keep is not None:
+            for f in ("best", "best.meta.json"):
+                shutil.copy2(os.path.join(ckpt, f), keep)
         test_graphs = GraphDataset(load_mlearn_json(os.path.join(mlearn, "test.json")),
                                    cfg.cutoff, cfg.threebody_cutoff,
                                    cache_dir=os.path.join(root, "cache"), name="test").graphs
@@ -2141,7 +2212,371 @@ def check_workflow(name, smi) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the user CLIs and the committee, from phase 9's checkpoint
+# ---------------------------------------------------------------------------
+
+# FIRE with the cell on CLI_RELAX_GRAPHS bench cells for one rebuild window
+# (the CLI relaxes in whole windows of 20 steps); NPT on the 32 bench cells
+# for CLI_MD_STEPS steps with a rebuild every MD_REBUILD; NVE card vs CPU on
+# CLI_NVE_GRAPHS cells for CLI_NVE_STEPS steps (cut from 20: a CPU step of 8
+# cells takes ~0.7 s on the chip machine's host).
+CLI_RELAX_GRAPHS, CLI_RELAX_STEPS = 8, 20
+CLI_MD_STEPS, CLI_NVE_GRAPHS, CLI_NVE_STEPS = 20, 8, 5
+ENSEMBLE_K = 3
+# Card (f32) vs the port's numpy oracle (f64), total energy of a 108-atom
+# bench cell, relative. f32 rounds the positions (6.6e-7 A at 11 A: ~1e-6 eV
+# through forces of ~0.1 eV/A) and the sum of 108 scaled atomic energies
+# (the elemental part, ~0.35 eV/atom, dominates: the sum's f32 ulp is
+# ~4e-6 eV, a random walk of 108 roundings ~2e-5 eV); the three blocks' f32
+# rounding of each atomic energy's model part (~1e-6 of ~0.02 eV) adds
+# little. ~5e-7 of ~38 eV expected; the CPU rehearsal (f32 CPU model vs the
+# oracle, the same cell) read 3e-8. Control: the readout's output kernel
+# scaled by 1 + ORACLE_CONTROL moves each atomic energy's model part by 1e-3.
+ORACLE_TOL, ORACLE_CONTROL = 2e-6, 1e-3
+OUTPUT_FIELDS = ("energy", "forces", "stress", "energy_per_atom", "atomic_energy")
+
+
+def write_cells_json(path, structures) -> str:
+    """``structures`` as the CLIs' JSON input (cartesian coordinates)."""
+    with open(path, "w") as f:
+        json.dump([{"lattice": s.lattice.tolist(), "cart_coords": s.cart_coords.tolist(),
+                    "atomic_numbers": s.atomic_numbers.tolist()} for s in structures], f)
+    return str(path)
+
+
+def counted_cli(label, main, argv, nb: int, mode: str = "factorized", evals=None):
+    """Run a CLI on the card with every launch count set to 0 just before
+    it; the launches just after must be ``evals`` evaluations' of ``mode``
+    (``None``: a whole number of them, at least one). Returns (its JSON,
+    launches, evaluations, wall s)."""
+    import torch
+
+    per_eval = expected_launches(mode, nb, False)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = cli_json(main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    key = "q_scatter" if mode == "factorized" else "fused_triplet_gate_sum"
+    n = launches[key] // per_eval[key] if evals is None else evals
+    print(f"  {label}: {wall:.2f} s; launches {launches} = {n} evaluations")
+    if n < 1 or launches != {k: v * n for k, v in per_eval.items()}:
+        raise AssertionError(f"{label}: launches {launches}, expected {per_eval} x {n}")
+    return out, launches, n, wall
+
+
+def predict_fields(out) -> dict:
+    """The predict CLI's per-structure output as f64 tensors."""
+    import torch
+
+    return {"energy": torch.tensor([r["energy"] for r in out], dtype=torch.float64),
+            "forces": torch.tensor([f for r in out for f in r["forces"]], dtype=torch.float64),
+            "stress": torch.tensor([r["stress_voigt"] for r in out], dtype=torch.float64)}
+
+
+def check_predict(cells, configs, ckpt, nb):
+    """The predict CLI on the 32 bench cells in one batch, on the card in
+    both three-body modes (one evaluation's launches each; each run twice,
+    the second warm) and on the CPU: card vs CPU within MODEL_TOL, fused vs
+    factorized within MODE_TOL. Returns its numbers and the card's
+    (factorized) energies."""
+    from torch_m3gnet_tpu_torch.cli import predict
+
+    args = ["--structures", cells, "--checkpoint", ckpt, "--batch-size", str(N_GRAPHS)]
+    runs, out = {}, {}
+    for mode in ("factorized", "fused"):
+        argv = [*args, "--config", configs[mode], "--device", "cuda"]
+        walls = []
+        for turn in ("", ", again"):
+            out[mode], launches, _, wall = counted_cli(f"predict ({mode}{turn})", predict.main,
+                                                       argv, nb, mode, evals=1)
+            walls.append(wall)
+        runs[mode] = {"wall_s": walls, "ms_per_batch": walls[-1] * 1e3,
+                      "structures_per_s": N_GRAPHS / walls[-1], "launches": launches}
+    t0 = time.perf_counter()
+    cpu = cli_json(predict.main, [*args, "--config", configs["factorized"], "--device", "cpu"])
+    print(f"  predict on the CPU: {time.perf_counter() - t0:.1f} s")
+    got, fused, want = (predict_fields(x) for x in (out["factorized"], out["fused"], cpu))
+    errs = {k: check(f"predict {k}, card vs CPU", got[k], want[k], MODEL_TOL) for k in want}
+    for k in want:
+        check(f"predict {k}, fused vs factorized (card)", fused[k], got[k], MODE_TOL)
+    return {"runs": runs, "card_vs_cpu_max_abs_err": errs,
+            "energy_ev": got["energy"][:4].tolist()}, got["energy"]
+
+
+def check_oracle(cfg, ckpt, structures, card_energy) -> dict:
+    """The card's energies (predict, factorized) of two bench cells against
+    the port's numpy oracle at f64 on the checkpoint's weights and sidecar,
+    within ORACLE_TOL; the oracle with one weight off by ORACLE_CONTROL must
+    fail."""
+    from torch_m3gnet_tpu_torch.data import graph_from_structure
+    from torch_m3gnet_tpu_torch.models import flax_from_params
+    from torch_m3gnet_tpu_torch.train import Trainer
+    from torch_m3gnet_tpu_torch.utils.oracle import reference_energy_numpy
+
+    meta = Trainer.load_meta(ckpt)
+    elemental, scale = np.asarray(meta["elemental_energies"]), meta["energy_scale"]
+    params = flax_from_params(Trainer.load_params(ckpt))
+    out_layer = params["readout"]["dense_2"]
+    wrong = {**params, "readout": {**params["readout"], "dense_2": {
+        **out_layer, "kernel": out_layer["kernel"] * (1 + ORACLE_CONTROL)}}}
+    rows = []
+    for i in range(2):
+        g = graph_from_structure(structures[i], cfg.cutoff, cfg.threebody_cutoff, dtype=np.float64)
+        t0 = time.perf_counter()
+        want = reference_energy_numpy(params, g, cfg, elemental, scale)
+        oracle_s = time.perf_counter() - t0
+        control = reference_energy_numpy(wrong, g, cfg, elemental, scale)
+        got = float(card_energy[i])
+        rel, rel_control = abs(got - want) / abs(want), abs(got - control) / abs(control)
+        ok = rel <= ORACLE_TOL < rel_control
+        print(f"  cell {i}: card {got:.8f} eV, oracle (f64) {want:.8f} eV: rel {rel:.3e} "
+              f"(tol {ORACLE_TOL:.0e}); control (readout kernel x (1 + {ORACLE_CONTROL:g})) "
+              f"{rel_control:.3e} {'fails, as it must' if rel_control > ORACLE_TOL else 'PASSES'}"
+              f"; oracle {oracle_s:.2f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"oracle check of cell {i}: {rel:.3e}, control {rel_control:.3e}")
+        rows.append({"card_ev": got, "oracle_ev": want, "rel_err": rel,
+                     "control_rel": rel_control, "oracle_s": oracle_s})
+    return {"energy_scale": scale, "cells": rows}
+
+
+def check_ensemble(cfg, ckpt, gbatch, nb) -> dict:
+    """K = ENSEMBLE_K members (the checkpoint and seeded weights 1, 2) on
+    the bench batch under deterministic algorithms: launches exactly K x one
+    evaluation's; mean and std bitwise equal to those of K single
+    evaluations (K potentials, each loaded with one member); a one-member
+    committee has std exactly 0. Then its time against those K single
+    evaluations (host clock to a synchronise, median of 5)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import EnsemblePotential, build_model, stack_params
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    meta = Trainer.load_meta(ckpt)
+    members = [{k: v.cuda() for k, v in Trainer.load_params(ckpt).items()}]
+    members += [build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+                .state_dict() for seed in range(1, ENSEMBLE_K)]
+    pots = []
+    for sd in members:
+        pots.append(build_model(cfg, elemental_energies=meta["elemental_energies"],
+                                energy_scale=meta["energy_scale"], device="cuda"))
+        pots[-1].load_state_dict(sd)
+    ens, stacked = EnsemblePotential(pots[0]), stack_params(members)
+    per_eval = expected_launches("factorized", nb, False)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_launches()
+        mean, std = ens.apply(stacked, gbatch)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        singles = [p(gbatch) for p in pots]
+        _, std1 = ens.apply(stack_params(members[:1]), gbatch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"  committee of {ENSEMBLE_K}: launches {launches}")
+    if launches != {k: v * ENSEMBLE_K for k, v in per_eval.items()}:
+        raise AssertionError(f"committee launches {launches}, expected {per_eval} x {ENSEMBLE_K}")
+    for f in OUTPUT_FIELDS:
+        x = torch.stack([getattr(o, f).detach() for o in singles])
+        if not (torch.equal(getattr(mean, f), x.mean(0))
+                and torch.equal(getattr(std, f), x.std(0, correction=0))):
+            raise AssertionError(f"committee {f} differs from {ENSEMBLE_K} single evaluations")
+        if not (getattr(std1, f) == 0).all():
+            raise AssertionError(f"a one-member committee has a nonzero std of {f}")
+    e_std = std.energy[: N_GRAPHS]
+    print(f"  mean and std bitwise equal to {ENSEMBLE_K} single evaluations; K = 1 std exactly "
+          f"0; energy std per cell {float(e_std.min()):.4e}-{float(e_std.max()):.4e} eV")
+
+    def timed(fn, reps=5):
+        walls = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls[1:])
+
+    ens_ms = timed(lambda: ens.apply(stacked, gbatch))
+    singles_ms = timed(lambda: [p(gbatch) for p in pots])
+    print(f"  committee eval {ens_ms:.2f} ms; {ENSEMBLE_K} single evals {singles_ms:.2f} ms")
+    return {"k": ENSEMBLE_K, "launches": launches, "ensemble_ms": ens_ms,
+            "k_single_evals_ms": singles_ms,
+            "energy_std_ev": [float(e_std.min()), float(e_std.max())]}
+
+
+def check_relax_cli(cells, config, ckpt, nb) -> dict:
+    """The relax CLI, FIRE with the cell, on the card (launches: whole
+    evaluations) and on the CPU: final energies, largest forces and
+    positions within MD_TOL of the largest magnitude."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.cli import relax
+
+    argv = ["--structures", cells, "--config", config, "--checkpoint", ckpt, "--relax-cell",
+            "--max-steps", str(CLI_RELAX_STEPS), "--fmax", "1e-6"]
+    card, launches, evals, wall = counted_cli("relax (FIRE + cell)", relax.main,
+                                              [*argv, "--device", "cuda"], nb)
+    t0 = time.perf_counter()
+    cpu = cli_json(relax.main, [*argv, "--device", "cpu"])
+    print(f"  relax on the CPU: {time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for key in ("energy", "fmax", "cart_coords"):
+        got, want = (torch.tensor([r[key] for r in x], dtype=torch.float64) for x in (card, cpu))
+        errs[key] = check(f"relax {key}, card vs CPU", got, want, MD_TOL)
+    return {"graphs": len(card), "steps": CLI_RELAX_STEPS, "evaluations": evals, "wall_s": wall,
+            "ms_per_step": wall * 1e3 / CLI_RELAX_STEPS, "card_vs_cpu_max_abs_err": errs,
+            "energy_ev_sum": sum(r["energy"] for r in card)}
+
+
+def read_extxyz_lattices(path) -> np.ndarray:
+    """The (frames, 3, 3) ``Lattice`` of each frame of an extended XYZ file."""
+    with open(path) as f:
+        return np.array([np.array(line.split('"')[1].split(), dtype=float).reshape(3, 3)
+                         for line in f if line.startswith("Lattice=")])
+
+
+def check_md_cli(cells, cells_nve, structures, config, ckpt, nb, tmp) -> dict:
+    """The md CLI: NPT on the bench cells with ``--traj-out`` on the card
+    (launches: CLI_MD_STEPS + rebuilds evaluations), each cell's frames one
+    per step with cells (V_t / V_0)^(1/3) x the initial one from the printed
+    volume log; then NVE on the card and on the CPU, energies and final
+    positions within MD_TOL."""
+    import os
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.cli import md
+
+    common = ["--config", config, "--checkpoint", ckpt, "--rebuild-every", str(MD_REBUILD)]
+    traj = os.path.join(tmp, "traj")
+    rebuilds = -(-CLI_MD_STEPS // MD_REBUILD)
+    npt, launches, _, wall = counted_cli(
+        "md (NPT, --traj-out)", md.main,
+        ["--structures", cells, *common, "--ensemble", "npt", "--steps", str(CLI_MD_STEPS),
+         "--tau-p", "100", "--traj-out", traj, "--device", "cuda"], nb,
+        evals=CLI_MD_STEPS + rebuilds)
+    volumes = np.asarray(npt["volume_a3"])
+    frames_err = 0.0
+    for i, s in enumerate(structures):
+        lattices = read_extxyz_lattices(f"{traj}.{i}.extxyz")
+        want = s.lattice[None] * ((volumes[:, i] / s.volume) ** (1 / 3))[:, None, None]
+        if lattices.shape != (CLI_MD_STEPS, 3, 3):
+            raise AssertionError(f"cell {i}: frames {lattices.shape}")
+        frames_err = max(frames_err, float(np.abs(lattices - want).max() / np.abs(want).max()))
+    if frames_err > 1e-8 or np.allclose(volumes, volumes[:1]):
+        raise AssertionError(f"NPT frames' cells off the volume log by {frames_err:.3e}")
+    print(f"  NPT: {len(structures)} x {CLI_MD_STEPS} frames, cells within {frames_err:.1e} of "
+          f"the volume log (volumes {volumes.min():.3f}-{volumes.max():.3f} A^3)")
+    nve = ["--structures", cells_nve, *common, "--ensemble", "nve", "--steps", str(CLI_NVE_STEPS)]
+    card, _, _, nve_wall = counted_cli("md (NVE)", md.main, [*nve, "--device", "cuda"], nb)
+    t0 = time.perf_counter()
+    cpu = cli_json(md.main, [*nve, "--device", "cpu"])
+    print(f"  md (NVE) on the CPU: {time.perf_counter() - t0:.1f} s")
+    errs = {}
+    for key in ("potential_energy_ev", "kinetic_energy_ev"):
+        errs[key] = check(f"md NVE {key}, card vs CPU", torch.tensor(card[key]),
+                          torch.tensor(cpu[key]), MD_TOL)
+    got, want = (torch.tensor([s["cart_coords"] for s in x["structures"]]) for x in (card, cpu))
+    errs["positions"] = check("md NVE final positions, card vs CPU", got, want, MD_TOL)
+    return {"npt_graphs": len(structures), "npt_steps": CLI_MD_STEPS, "npt_rebuilds": rebuilds,
+            "npt_wall_s": wall, "npt_ms_per_step": wall * 1e3 / CLI_MD_STEPS,
+            "npt_frames_rel_err": frames_err, "npt_launches": launches,
+            "nve_graphs": CLI_NVE_GRAPHS, "nve_steps": CLI_NVE_STEPS, "nve_wall_s": nve_wall,
+            "nve_card_vs_cpu_max_abs_err": errs}
+
+
+def check_elastic_cli(config, ckpt, nb, tmp) -> dict:
+    """The elastic CLI with ``--eos`` on a perturbed 4-atom Cu cell (phase
+    8's) on the card (B1-B3 and B8 launched in its double backward) and on
+    the CPU: the elastic matrix and the Gamma eigenvalues sign(f) f^2 within
+    ELASTIC_TOL, the E(V) curve within MODEL_TOL."""
+    import os
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.cli import elastic
+
+    path = write_cells_json(os.path.join(tmp, "elastic.json"), [elastic_cell()])
+    argv = ["--structure", path, "--config", config, "--checkpoint", ckpt, "--eos"]
+    reset_launches()
+    t0 = time.perf_counter()
+    card = cli_json(elastic.main, [*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    print(f"  elastic --eos (card): {wall:.2f} s; launches {launches}")
+    if not all(launches[k] for k in ("q_scatter", "r1_gather", "r2_gather", "sorted_segment_sum")):
+        raise AssertionError(f"elastic did not run B1-B3 and B8 on the card: {launches}")
+    t0 = time.perf_counter()
+    cpu = cli_json(elastic.main, [*argv, "--device", "cpu"])
+    print(f"  elastic --eos on the CPU: {time.perf_counter() - t0:.1f} s")
+
+    def eig(x):
+        f = torch.tensor(x["gamma_frequencies_thz"], dtype=torch.float64)
+        return torch.sign(f) * f**2
+
+    errs = {"elastic_gpa": check("elastic matrix, card vs CPU",
+                                 torch.tensor(card["elastic_gpa"]),
+                                 torch.tensor(cpu["elastic_gpa"]), ELASTIC_TOL),
+            "gamma_eigenvalues": check("Gamma eigenvalues sign(f) f^2, card vs CPU", eig(card),
+                                       eig(cpu), ELASTIC_TOL),
+            "eos_energies_ev": check("E(V), card vs CPU", torch.tensor(card["eos_energies_ev"]),
+                                     torch.tensor(cpu["eos_energies_ev"]), MODEL_TOL)}
+    print(f"  bulk modulus (Voigt) card {card['bulk_modulus_voigt_gpa']} GPa, CPU "
+          f"{cpu['bulk_modulus_voigt_gpa']}; Birch-Murnaghan card {card['birch_murnaghan']}, "
+          f"CPU {cpu['birch_murnaghan']}")
+    return {"wall_s": wall, "launches": launches, "card_vs_cpu_max_abs_err": errs,
+            "bulk_modulus_voigt_gpa": card["bulk_modulus_voigt_gpa"],
+            "birch_murnaghan": card["birch_murnaghan"]}
+
+
+def check_cli(name, smi, ckpt, gbatch) -> dict:
+    """Phase 10 (see the module docstring); returns the ``cli`` line."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    config = str(Path(__file__).resolve().parent / "configs" / "mlearn_Cu.yaml")
+    cfg = M3GNetConfig.from_yaml(config)
+    structures = bench_structures()
+    n_params = sum(v.numel() for v in Trainer.load_params(ckpt).values())
+    if n_params != N_PARAMS:
+        raise AssertionError(f"the checkpoint holds {n_params} parameters, expected {N_PARAMS}")
+    info = {"card": name, "nvidia_smi": smi, "checkpoint_params": n_params,
+            "cuts": {"relax_steps": f"{CLI_RELAX_STEPS} (one rebuild window)",
+                     "nve_vs_cpu": f"{CLI_NVE_GRAPHS} cells x {CLI_NVE_STEPS} steps (from 20)"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        fused = os.path.join(tmp, "mlearn_Cu_fused.yaml")
+        with open(config) as src, open(fused, "w") as dst:
+            dst.write(src.read() + "\nthreebody_mode: fused\n")
+        cells = write_cells_json(os.path.join(tmp, "bench.json"), structures)
+        few = write_cells_json(os.path.join(tmp, "bench8.json"), structures[:CLI_RELAX_GRAPHS])
+        print("  -- predict")
+        info["predict"], energy = check_predict(cells, {"factorized": config, "fused": fused},
+                                                ckpt, cfg.num_blocks)
+        print("  -- oracle")
+        info["oracle"] = check_oracle(cfg, ckpt, structures, energy)
+        print("  -- committee")
+        info["ensemble"] = check_ensemble(cfg, ckpt, gbatch, cfg.num_blocks)
+        print("  -- relax")
+        info["relax"] = check_relax_cli(few, config, ckpt, cfg.num_blocks)
+        print("  -- md")
+        info["md"] = check_md_cli(cells, few, structures, config, ckpt, cfg.num_blocks, tmp)
+        print("  -- elastic")
+        info["elastic"] = check_elastic_cli(config, ckpt, cfg.num_blocks, tmp)
+    return info
+
+
 def main() -> int:
+    import os
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2246,7 +2681,18 @@ def main() -> int:
     print(json.dumps({"simulate": sim}))
 
     print("== 9. train workflow (CLIs, train_model, streams, prefetch)")
-    print(json.dumps({"workflow": check_workflow(name, smi)}))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as keep:
+        print(json.dumps({"workflow": check_workflow(name, smi, keep)}))
+        print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+        print("== 10. user CLIs and the committee, from phase 9's checkpoint")
+        t0 = time.perf_counter()
+        cli = check_cli(name, smi, os.path.join(keep, "best"), gbatch)
+        cli["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"cli": cli}))
+    for row in rows:
+        row["launches_predict"] = next(r["launches"][row["name"]] for r in
+                                       cli["predict"]["runs"].values() if r["launches"][row["name"]])
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

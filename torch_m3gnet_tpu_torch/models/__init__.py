@@ -1,4 +1,5 @@
-from torch_m3gnet_tpu_torch.models.convert import params_from_flax
+from torch_m3gnet_tpu_torch.models.convert import flax_from_params, params_from_flax
+from torch_m3gnet_tpu_torch.models.ensemble import EnsemblePotential, stack_params
 from torch_m3gnet_tpu_torch.models.m3gnet import (
     M3GNet,
     M3GNetPotential,
@@ -8,10 +9,13 @@ from torch_m3gnet_tpu_torch.models.m3gnet import (
 )
 
 __all__ = [
+    "EnsemblePotential",
     "M3GNet",
     "M3GNetPotential",
     "PotentialOutput",
     "build_model",
     "edge_vectors_fm",
+    "flax_from_params",
     "params_from_flax",
+    "stack_params",
 ]

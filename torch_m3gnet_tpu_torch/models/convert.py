@@ -5,6 +5,7 @@ orientation (in_features, features), so the map is by name alone: the
 nested path ``atom_embed/embedding`` becomes the ``state_dict`` key
 ``atom_embed.embedding``, ``conv_edge_0/dense_1/kernel`` becomes
 ``conv_edge_0.dense_1.kernel``, and so on. Nothing is transposed.
+:func:`flax_from_params` maps back.
 """
 
 from __future__ import annotations
@@ -37,3 +38,18 @@ def params_from_flax(params: Mapping, dtype: torch.dtype | None = None) -> dict[
 
     walk(tree, "")
     return out
+
+
+def flax_from_params(state_dict: Mapping) -> dict:
+    """The inverse of :func:`params_from_flax`: a ``state_dict`` of the model
+    (or of the potential, whose keys carry a ``model.`` prefix) -> the nested
+    Flax-layout tree of float64 numpy arrays (the ``params`` subtree), as
+    ``utils.oracle.reference_energy_numpy`` reads it."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.removeprefix("model.").split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().cpu().double().numpy()
+    return tree

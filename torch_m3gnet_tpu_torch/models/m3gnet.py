@@ -364,15 +364,15 @@ class M3GNetPotential(nn.Module):
 
 
 def resolve_device(device) -> torch.device:
-    """``None`` means the card: raise rather than run on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port's plain versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` means the card. With no card, ``None`` or a CUDA device
+    raises rather than run on the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain versions on the CPU"
+        )
+    return device
 
 
 def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
