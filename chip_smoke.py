@@ -126,6 +126,36 @@ Phases (each raises on failure, so any failure exits non-zero):
    --eos`` on a 4-atom cell against ``--device cpu`` (``ELASTIC_TOL``).
    Each run's wall time goes into the ``{"cli": ...}`` line.
 
+11. parallel: two ranks on one card (``cuda:0``) over gloo (NCCL refuses two
+   ranks on one GPU; gloo stages CUDA tensors through the host, so these
+   times are correctness numbers, not scaling), spawned by
+   ``parallel.launch`` (each rank imports this file; a rank that fails or
+   outlasts ``PAR_TIMEOUT_S`` fails the phase). gp: a 10x10x10 fcc-Cu
+   supercell (4,000 atoms, Gaussian jitter 0.05 A, phase 9's teacher's
+   E/F/S as targets), reordered along an axis and cut into two slabs, the
+   default model (seed 0) in the factorized and the fused mode: each rank's
+   launches exactly one eval's of its mode, E/F/S (every shard's forces
+   gathered) against the unpartitioned graph on one rank on the card
+   (``MODEL_TOL``); one ``GraphParallelTrainer.train_step``: its loss and
+   the gradient it hands the optimizer against the single-device loss and
+   gradient (``MODEL_TOL``, ``TRAIN_TOL``), its update against Adam given
+   that gradient (``UPDATE_TOL``), the weights after the step bitwise
+   equal on both ranks; the halo exchange of 64 feature columns timed. dp: phase 9's first 8 mlearn cells as 2 x 4 graphs, then a tail
+   of 3 that leaves rank 1 fully padded: each step's combined gradient
+   against the same weighted gradient formed row by row on one rank
+   (``TRAIN_TOL``), its update against Adam given that gradient
+   (``UPDATE_TOL``); an unweighted mean must fail the tail's check. Then
+   ``train_mlearn --mesh 2 --device cuda:0`` on both ranks of the same job
+   (the CLI joins their process group; torchrun starts it in
+   ``tests/test_torch_parallel_dp.py``) for one epoch on phase 9's mlearn
+   set: both ranks print the same test metrics, rank 0 alone logs one row,
+   and its checkpoint loads and evaluates. Prints
+   the ``{"parallel": ...}`` line (gp eval ms per mode against one
+   device's, the gp train step, the exchange per call and its rows, the dp
+   step against one rank's, and the dp streaming producer's host ms per
+   batch on the mlearn training set: a rank's full stream as
+   ``train_model`` reads it, one device's, and a rank's stride of shards).
+
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
 """
@@ -2159,9 +2189,10 @@ def check_workflow(name, smi, keep: str | None = None) -> dict:
                 and len(losses) == 2 and losses[1] < losses[0]):
             raise AssertionError(f"mlearn run: checkpoints {sorted(files)}, train losses {losses}")
         print(f"  train loss by epoch {losses}; test loss {runs['train-mlearn']['test_loss']:.4e}")
-        if keep is not None:
+        if keep is not None:  # for phases 10 and 11
             for f in ("best", "best.meta.json"):
                 shutil.copy2(os.path.join(ckpt, f), keep)
+            shutil.copytree(mlearn, os.path.join(keep, "mlearn_Cu"))
         test_graphs = GraphDataset(load_mlearn_json(os.path.join(mlearn, "test.json")),
                                    cfg.cutoff, cfg.threebody_cutoff,
                                    cache_dir=os.path.join(root, "cache"), name="test").graphs
@@ -2573,6 +2604,380 @@ def check_cli(name, smi, ckpt, gbatch) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: data and graph parallelism, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# The ranks of phase 11 share one card (NCCL refuses two ranks on one GPU),
+# so their collectives run over gloo, which stages CUDA tensors through the
+# host: its times are correctness numbers, not scaling numbers.
+PAR_RANKS, PAR_DEVICE, PAR_BACKEND, PAR_TIMEOUT_S = 2, "cuda:0", "gloo", 300
+# The gp cell: a 10x10x10 fcc-Cu supercell (4,000 atoms, a = 3.62 A) with
+# Gaussian displacements of GP_JITTER A from GP_SEED, labelled by phase 9's
+# teacher, reordered along its longest axis and cut into PAR_RANKS slabs.
+GP_REPS, GP_JITTER, GP_SEED = 10, 0.05, 3
+# dp: phase 9's first DP_PER_RANK * PAR_RANKS mlearn training cells as one
+# global batch, then DP_TAIL more as a tail that leaves rank 1 fully padded.
+DP_PER_RANK, DP_TAIL = 4, 3
+
+
+def gp_cell():
+    """The gp cell, labelled by the teacher on the card (its targets)."""
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.data import Structure
+
+    rng = np.random.default_rng(GP_SEED)
+    base = Structure.from_frac_coords(
+        np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
+        [29] * 4).supercell((GP_REPS,) * 3)
+    cell = Structure(base.lattice, base.cart_coords + GP_JITTER * rng.standard_normal(
+        base.cart_coords.shape), base.atomic_numbers)
+    label_structures(M3GNetConfig(), [cell], "cuda")
+    return cell
+
+
+def rank_times(step, reps: int = 5) -> float:
+    """Median host ms of ``step()`` to its synchronise, after one warm-up
+    (every rank calls it: the step's collectives pair the ranks up)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def flat_grads(loss, params):
+    import torch
+
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+
+def gp_rank(inputs: dict) -> dict:
+    """Phase 11's gp checks on one rank (see ``check_parallel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.ops.halo import halo_exchange_fm
+    from torch_m3gnet_tpu_torch.parallel import GraphParallelPotential, GraphParallelTrainer
+    from torch_m3gnet_tpu_torch.parallel import make_mesh
+    from torch_m3gnet_tpu_torch.train import loss_and_metrics
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(None, "gp", "cuda", device=PAR_DEVICE)
+    sharded, full = inputs["sharded"], inputs["full"]
+    out = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    for mode in ("factorized", "fused"):
+        cfg = M3GNetConfig(threebody_mode=mode)
+        pot = build_model(cfg, device=PAR_DEVICE, generator=torch.Generator().manual_seed(0))
+        gp = GraphParallelPotential(pot, mesh)
+        reset_launches()
+        res = gp.apply(sharded)  # every shard's forces, gathered
+        torch.cuda.synchronize()
+        row = {"launches": all_launches(),
+               "expected": expected_launches(mode, cfg.num_blocks, False),
+               "gp_eval_ms": rank_times(lambda: gp(sharded))}
+        if rank == 0:
+            ref = pot(full)
+            row["single_eval_ms"] = rank_times(lambda: pot(full))
+            row["rel_err"] = {f: rel_err(getattr(res, f)[: len(getattr(ref, f))],
+                                         getattr(ref, f).detach())[1]
+                              for f in ("energy", "forces", "stress")}
+        dist.barrier()
+        out[mode] = row
+
+    # the halo exchange of one block's node features (D = 64 columns)
+    shard = gp.local(sharded)
+    send, recv = (torch.as_tensor(getattr(shard, k), device=PAR_DEVICE).to(torch.int32)
+                  for k in ("halo_send_idx", "halo_recv_idx"))
+    x = torch.randn(cfg.embedding_dim, shard.num_nodes, device=PAR_DEVICE)
+    out["exchange_ms"] = rank_times(
+        lambda: halo_exchange_fm(x, send, recv, shard.halo_offsets, gp.group), reps=20)
+
+    # one GraphParallelTrainer step (factorized): the gradient its train_step
+    # hands the optimizer against one device's, its update against Adam
+    class Recording(GraphParallelTrainer):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().clone() for g in grads]
+            super().apply_gradients(grads)
+
+    cfg = M3GNetConfig()
+    trainer = Recording(build_model(cfg, device=PAR_DEVICE,
+                                    generator=torch.Generator().manual_seed(0)), cfg, mesh)
+    before = [p.detach().clone() for p in trainer.params]
+    loss = trainer.train_step(sharded, cfg.learning_rate)["loss"]
+    flat = torch.cat([p.detach().reshape(-1) for p in trainer.params])
+    every = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(every, flat)
+    out["train"] = {"weights_bitwise_equal_across_ranks": all(torch.equal(every[0], f)
+                                                              for f in every)}
+    if rank == 0:
+        ref = build_model(cfg, device=PAR_DEVICE)
+        with torch.no_grad():
+            for p, b in zip(ref.parameters(), before):
+                p.copy_(b)
+        want, _ = loss_and_metrics(ref, full, cfg)
+        want_g = flat_grads(want, list(ref.parameters()))
+        grad_err, update_err = step_errors(cfg, [g.cpu() for g in want_g], before,
+                                           trainer.grads,
+                                           [p.detach() for p in trainer.params])
+        out["train"].update(
+            loss=float(loss), single_loss=float(want.detach()),
+            loss_rel_err=rel_err(loss, want.detach())[1], grad_rel_err=grad_err,
+            update_err_lr=update_err)
+    dist.barrier()
+    out["train"]["gp_train_step_ms"] = rank_times(lambda: trainer.train_step(sharded), reps=3)
+    return out
+
+
+def dp_rank(inputs: dict) -> dict:
+    """Phase 11's dp checks on one rank (see ``check_parallel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.parallel import DataParallel, make_mesh
+    from torch_m3gnet_tpu_torch.train import Trainer, loss_and_metrics
+
+    class Recording(DataParallel):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().clone() for g in grads]
+            super().apply_gradients(grads)
+
+    rank = dist.get_rank()
+    mesh = make_mesh(None, "dp", "cuda", device=PAR_DEVICE)
+    cfg = inputs["config"]
+    out = {"rank": rank}
+    for label, stack in inputs["stacks"].items():
+        pot = build_model(cfg, device=PAR_DEVICE, generator=torch.Generator().manual_seed(0))
+        dp = Recording(pot, cfg, mesh)
+        before = [p.detach().clone() for p in dp.params]
+        dp.train_step(stack, cfg.learning_rate)
+        after = [p.detach().clone() for p in dp.params]
+        row = {}
+        if rank == 0:  # the same weighted gradient on one rank, row by row
+            ref = build_model(cfg, device=PAR_DEVICE)
+            with torch.no_grad():
+                for p, b in zip(ref.parameters(), before):
+                    p.copy_(b)
+            rows = [stack.row(r) for r in range(len(stack.positions))]
+            w = [float(np.asarray(r.graph_mask, np.float32).sum()) for r in rows]
+            per_row = [flat_grads(loss_and_metrics(ref, r, cfg)[0], list(ref.parameters()))
+                       for r in rows]
+            weighted = [sum(wi / sum(w) * g[i] for wi, g in zip(w, per_row))
+                        for i in range(len(before))]
+            unweighted = [sum(g[i] for g in per_row) / len(rows) for i in range(len(before))]
+            row["grad_rel_err"], row["update_err_lr"] = step_errors(
+                cfg, [g.cpu() for g in weighted], before, dp.grads, after)
+            row["control_unweighted_grad_rel_err"] = step_errors(
+                cfg, [g.cpu() for g in unweighted], before, dp.grads, after)[0]
+            row["real_graphs_per_rank"] = w
+        dist.barrier()
+        out[label] = row
+    stack = inputs["stacks"]["full"]
+    out["dp_step_ms"] = rank_times(lambda: dp.train_step(stack))
+    if rank == 0:
+        one = Trainer(build_model(cfg, device=PAR_DEVICE), cfg)
+        out["one_rank_step_ms"] = rank_times(lambda: one.train_step(stack.row(0)))
+    dist.barrier()
+    return out
+
+
+def cli_rank(inputs: dict) -> dict:
+    """``train_mlearn --mesh 2`` on this rank (the process group is up, so
+    the CLI joins it): its printed test metrics and wall time."""
+    from torch_m3gnet_tpu_torch.cli import train_mlearn
+
+    t0 = time.perf_counter()
+    test = cli_metrics(train_mlearn.main, [
+        "--mesh", str(PAR_RANKS), "--device", PAR_DEVICE, "--path", inputs["mlearn"],
+        "--config", inputs["config"], "--root", inputs["root"], "--max-epochs", "1"])
+    return {"test": test, "wall_s": time.perf_counter() - t0}
+
+
+def stream_producer_ms(structures, cfg, cache_dir: str) -> dict:
+    """Host ms per batch of the dp streaming producers, on the host alone:
+    a rank's stream as ``train_model`` runs it (every shard read and
+    decoded, the rank's row kept, so that the row is row ``rank`` of the
+    global batch), one device's stream of the same global batches, and a
+    rank that reads only its stride of the shards (``HostShardView``, a
+    different batch order); the median of 3 passes over the split."""
+    from torch_m3gnet_tpu_torch.data.streaming import (HostShardView, StreamingGraphDataset,
+                                                       stream_batches, stream_sharded_batches)
+
+    ds = StreamingGraphDataset(structures, cfg.cutoff, cfg.threebody_cutoff, cache_dir,
+                               shard_size=WF_SHARD)
+    bucket = ds.bucket(DP_PER_RANK, cfg.pad_multiple)
+    producers = {
+        "dp_rank_full_stream": lambda: stream_sharded_batches(ds, DP_PER_RANK, PAR_RANKS,
+                                                              bucket, rank=0),
+        "one_device": lambda: stream_batches(ds, DP_PER_RANK * PAR_RANKS, ds.bucket(
+            DP_PER_RANK * PAR_RANKS, cfg.pad_multiple)),
+        "dp_rank_shard_stride": lambda: stream_sharded_batches(
+            HostShardView(ds, 0, PAR_RANKS), DP_PER_RANK, 1, bucket, rank=0),
+    }
+    out = {"graphs": len(ds), "shards": ds.n_shards, "per_rank_batch": DP_PER_RANK}
+    for label, make in producers.items():
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in make())
+            times.append((time.perf_counter() - t0) * 1e3 / n)
+        out[label] = {"batches": n, "host_ms_per_batch": statistics.median(times)}
+    return out
+
+
+def parallel_rank(inputs: dict) -> dict:
+    """What each rank of phase 11 runs; with each part's end in seconds
+    from the job's start (``t0``, the parent's clock)."""
+    out = {"timeline_s": {"rank_up": time.time() - inputs["t0"]}}
+    for part, fn in (("gp", gp_rank), ("dp", dp_rank), ("cli", cli_rank)):
+        out[part] = fn(inputs[part])
+        out["timeline_s"][part] = time.time() - inputs["t0"]
+    return out
+
+
+def check_mesh_cli(ranks, inputs: dict) -> dict:
+    """The CLI's run (``cli_rank``): both ranks printed the same test
+    metrics, rank 0 alone logged (one row for one epoch), and its ``last``
+    checkpoint loads into the default model and evaluates a batch."""
+    import os
+
+    import torch
+
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    printed = [r["cli"]["test"] for r in ranks]
+    rows = open(os.path.join(inputs["root"], "logs", "metrics.jsonl")).read().splitlines()
+    print(f"  train_mlearn --mesh {PAR_RANKS}: {ranks[0]['cli']['wall_s']:.1f} s; test loss per "
+          f"rank {[m['loss'] for m in printed]}; metrics.jsonl rows {len(rows)}")
+    if any(m != printed[0] for m in printed) or len(rows) != 1:
+        raise AssertionError(f"ranks printed {printed}; metrics.jsonl holds {len(rows)} rows")
+    ckpt = os.path.join(inputs["root"], "checkpoints", "last")
+    meta = Trainer.load_meta(ckpt)
+    pot = build_model(M3GNetConfig.from_yaml(inputs["config"]), device="cuda",
+                      elemental_energies=meta["elemental_energies"],
+                      energy_scale=meta["energy_scale"])
+    pot.load_state_dict(Trainer.load_params(ckpt))
+    energy = pot(inputs["batch"]).energy.detach()
+    if not torch.isfinite(energy).all():
+        raise AssertionError("the rank-0 checkpoint evaluates to non-finite energies")
+    return {"wall_s": ranks[0]["cli"]["wall_s"], "test": printed[0], "ranks_printed_equal": True,
+            "metrics_rows": len(rows), "checkpoint_loads": True}
+
+
+def check_parallel(name, smi, mlearn: str) -> dict:
+    """Phase 11 (see the module docstring); returns the ``parallel`` line."""
+    import os
+    import shutil
+    import tempfile
+
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.data import BucketSpec, graph_from_structure
+    from torch_m3gnet_tpu_torch.data.dataset import build_graphs, stack_global_batch
+    from torch_m3gnet_tpu_torch.data.io import load_mlearn_json
+    from torch_m3gnet_tpu_torch.parallel import halo_stats, launch, partition_graph
+    from torch_m3gnet_tpu_torch.parallel.graph_shard import spatial_reorder
+
+    info = {"card": name, "nvidia_smi": smi, "ranks": PAR_RANKS, "device": PAR_DEVICE,
+            "backend": PAR_BACKEND,
+            "note": "gloo on one shared card: correctness numbers, not scaling"}
+    t0 = time.perf_counter()
+    cell = gp_cell()
+    full, _ = spatial_reorder(graph_from_structure(cell, 5.0, 4.0), "axis")
+    sharded = partition_graph(full, PAR_RANKS)
+    info["gp_cell"] = {"atoms": full.num_nodes, "edges": full.num_edges,
+                       "triplets": full.num_triplets,
+                       "shard_padded": [int(sharded.positions.shape[1]),
+                                        int(sharded.edge_src.shape[1]),
+                                        int(sharded.triplet_e1.shape[1])],
+                       "halo_stats": halo_stats(sharded),
+                       "host_build_s": time.perf_counter() - t0}
+    print(f"  gp cell: {info['gp_cell']}")
+    cfg = M3GNetConfig.from_yaml(os.path.join(os.path.dirname(__file__), "configs",
+                                              "mlearn_Cu.yaml")).replace(accumulate_grad_batches=1)
+    n = DP_PER_RANK * PAR_RANKS
+    graphs = list(build_graphs(load_mlearn_json(os.path.join(mlearn, "training.json"))[: n + DP_TAIL],
+                               cfg.cutoff, cfg.threebody_cutoff))
+    bucket = BucketSpec.for_batches(graphs, DP_PER_RANK, cfg.pad_multiple)
+    stacks = {"full": stack_global_batch(graphs[:n], DP_PER_RANK, PAR_RANKS, bucket),
+              "tail": stack_global_batch(graphs[n:], DP_PER_RANK, PAR_RANKS, bucket)}
+    tmp = tempfile.mkdtemp()
+    info["dp_stream_producer"] = stream_producer_ms(
+        load_mlearn_json(os.path.join(mlearn, "training.json")), cfg, os.path.join(tmp, "shards"))
+    print(f"  dp streaming producer, host ms per batch: {info['dp_stream_producer']}")
+    cli = {"mlearn": mlearn, "root": os.path.join(tmp, "run_mesh"),
+           "config": os.path.join(os.path.dirname(__file__), "configs", "mlearn_Cu.yaml")}
+    t0 = time.time()
+    try:
+        ranks = launch.run("chip_smoke:parallel_rank", PAR_RANKS,
+                           {"t0": t0, "gp": {"sharded": sharded, "full": full},
+                            "dp": {"config": cfg, "stacks": stacks}, "cli": cli},
+                           backend=PAR_BACKEND, timeout_s=PAR_TIMEOUT_S)
+        info["job_s"] = time.time() - t0
+        info["timeline_s"] = [r["timeline_s"] for r in ranks]
+        print(f"  job {info['job_s']:.1f} s; each rank's parts ended at (s) {info['timeline_s']}")
+        info["cli"] = check_mesh_cli(ranks, {**cli, "batch": stacks["full"].row(0)})
+    finally:
+        shutil.rmtree(tmp)
+    gp, dp = ranks[0]["gp"], ranks[0]["dp"]
+    info["gp"] = {}
+    for mode in ("factorized", "fused"):
+        for r in ranks:
+            got = r["gp"][mode]["launches"]
+            print(f"  rank {r['gp']['rank']} ({r['gp']['device']}), {mode}: launches {got}")
+            if got != r["gp"][mode]["expected"]:
+                raise AssertionError(f"gp {mode} rank launches {got}, expected one eval's "
+                                     f"{r['gp'][mode]['expected']}")
+        for field, err in gp[mode]["rel_err"].items():
+            print(f"  gp {mode} {field} vs one device: rel={err:.3e} tol={MODEL_TOL:.0e}")
+            if not err <= MODEL_TOL:
+                raise AssertionError(f"gp {mode} {field}: relative error {err:.3e}")
+        info["gp"][mode] = {k: gp[mode][k] for k in ("launches", "gp_eval_ms",
+                                                      "single_eval_ms", "rel_err")}
+    info["exchange_ms"] = gp["exchange_ms"]
+    train = gp["train"]
+    print(f"  gp train step: loss {train['loss']:.6e} vs one device {train['single_loss']:.6e} "
+          f"(rel {train['loss_rel_err']:.3e}), worst weight gradient rel "
+          f"{train['grad_rel_err']:.3e} tol {TRAIN_TOL:.0e}, update {train['update_err_lr']:.3e} "
+          f"lr tol {UPDATE_TOL:.0e}; weights bitwise equal across ranks "
+          f"{[r['gp']['train']['weights_bitwise_equal_across_ranks'] for r in ranks]}")
+    if not (train["loss_rel_err"] <= MODEL_TOL and train["grad_rel_err"] <= TRAIN_TOL
+            and train["update_err_lr"] <= UPDATE_TOL
+            and all(r["gp"]["train"]["weights_bitwise_equal_across_ranks"] for r in ranks)):
+        raise AssertionError(f"gp train step: {train}")
+    info["gp_train"] = train
+    for label in ("full", "tail"):
+        row = dp[label]
+        print(f"  dp {label} (real graphs per rank {row['real_graphs_per_rank']}): gradient rel "
+              f"{row['grad_rel_err']:.3e} tol {TRAIN_TOL:.0e}, update {row['update_err_lr']:.3e} "
+              f"lr tol {UPDATE_TOL:.0e}; control (unweighted mean) gradient rel "
+              f"{row['control_unweighted_grad_rel_err']:.3e}")
+        if not (row["grad_rel_err"] <= TRAIN_TOL and row["update_err_lr"] <= UPDATE_TOL):
+            raise AssertionError(f"dp {label} step: {row}")
+    if dp["tail"]["control_unweighted_grad_rel_err"] <= TRAIN_TOL:
+        raise AssertionError("the unweighted-mean control passed the dp tail check")
+    info["dp"] = {k: dp[k] for k in ("full", "tail", "dp_step_ms", "one_rank_step_ms")}
+    print(f"  times ({name} | {smi}; {info['note']}): gp eval ms "
+          f"{ {m: round(info['gp'][m]['gp_eval_ms'], 2) for m in info['gp']} } vs one device "
+          f"{ {m: round(info['gp'][m]['single_eval_ms'], 2) for m in info['gp']} }; exchange "
+          f"{info['exchange_ms']:.3f} ms a call of "
+          f"{info['gp_cell']['halo_stats']['halo_rows_per_shard']} rows; gp train step "
+          f"{train['gp_train_step_ms']:.1f} ms; dp step {dp['dp_step_ms']:.1f} ms vs one rank "
+          f"{dp['one_rank_step_ms']:.1f} ms")
+    return info
+
+
 def main() -> int:
     import os
     import tempfile
@@ -2689,10 +3094,17 @@ def main() -> int:
         t0 = time.perf_counter()
         cli = check_cli(name, smi, os.path.join(keep, "best"), gbatch)
         cli["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"cli": cli}))
+        print(json.dumps({"cli": cli}))
+        print(f"== 11. parallel: {PAR_RANKS} ranks on {PAR_DEVICE} over {PAR_BACKEND}")
+        t0 = time.perf_counter()
+        par = check_parallel(name, smi, os.path.join(keep, "mlearn_Cu"))
+        par["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"parallel": par}))
     for row in rows:
         row["launches_predict"] = next(r["launches"][row["name"]] for r in
                                        cli["predict"]["runs"].values() if r["launches"][row["name"]])
+        row["launches_gp_rank"] = next(par["gp"][m]["launches"][row["name"]] for m in
+                                       ("factorized", "fused") if par["gp"][m]["launches"][row["name"]])
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 against the JAX package's on the same files, on the CPU (``--device cpu``):
 the printed test metrics, the ``metrics.jsonl`` logs, the checkpoints'
 ``last.meta.json`` and the caches; the MPF CLI streaming and
-``--in-memory``; ``--resume``; ``--mesh 2`` raises.
+``--in-memory``; ``--resume``; ``--mesh 2`` raises outside torchrun.
 
 Both sides start from JAX's initial weights (the port's ``Trainer`` is
 patched in the test to load them) and compute in float32, as the CLIs do:
@@ -171,6 +171,8 @@ def test_train_mpf_matches_jax(tmp_path, monkeypatch, capsys, shared_weights, in
 
 
 def test_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    """``--mesh 2`` outside torchrun (no process group, no WORLD_SIZE)
+    raises rather than train on one rank."""
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train_mlearn.main(["--path", MLEARN, "--config", write_config(tmp_path, "m", 1),
                            "--root", str(tmp_path / "r"), "--device", "cpu", "--mesh", "2"])

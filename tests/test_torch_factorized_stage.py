@@ -233,8 +233,9 @@ def test_cpu_path_launches_no_kernel():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port (the simulation path, the native loader, the
     training workflow, every CLI, the ensemble and ``utils/`` with its numpy
-    oracle among them), imported in a fresh interpreter, loads no module of
-    jax, flax or torch_m3gnet_tpu, and no logging package (the Trainer
+    oracle, ``parallel/`` with ``ops.halo`` and the rank launcher among them),
+    imported in a fresh interpreter, loads no module of jax, flax or
+    torch_m3gnet_tpu, and no logging package (the Trainer
     imports TensorBoard only when asked; ``utils.profiling`` imports
     torch.profiler's trace handler only inside ``device_trace``)."""
     code = """
@@ -254,9 +255,11 @@ for name in ("ops.fused_triplet", "ops.windowed_take", "ops.factorized_stage", "
              "simulate.elastic", "data.io", "data.streaming", "train.prefetch", "train.run",
              "cli", "cli.train_mlearn", "cli.train_mpf", "cli.common", "cli.predict",
              "cli.relax", "cli.md", "cli.elastic", "cli.bessel_zeros", "models.ensemble",
-             "utils", "utils.cells", "utils.debug", "utils.oracle", "utils.profiling"):
+             "utils", "utils.cells", "utils.debug", "utils.oracle", "utils.profiling",
+             "ops.halo", "parallel", "parallel.mesh", "parallel.distributed", "parallel.dp",
+             "parallel.graph_shard", "parallel.launch"):
     assert pkg.__name__ + "." + name in names, name
-assert len(names) >= 49, names
+assert len(names) >= 56, names
 logging = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("tensorboard", "tensorboardX", "wandb", "mlflow"))
 assert not logging, logging

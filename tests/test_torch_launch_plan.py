@@ -5,7 +5,9 @@ On the CPU each kernel wrapper calls its plain version exactly where, on a
 CUDA tensor, it would launch its kernel; counting those calls over one eval
 and one train step gives the card's launch counts, in every three-body mode
 and at two depths (the counts that grow with the blocks and those that do
-not).
+not); on each rank of a partitioned graph (two gloo ranks, spawned once),
+one gp evaluation and one ``GraphParallelTrainer`` step launch what one
+evaluation and one train step do on one device.
 """
 
 import collections
@@ -16,25 +18,20 @@ import torch
 
 import chip_smoke
 from torch_m3gnet_tpu_torch.config import M3GNetConfig
-from torch_m3gnet_tpu_torch.data import Structure, pack_structures
+from torch_m3gnet_tpu_torch.data import Structure, graph_from_structure, pack_structures
 from torch_m3gnet_tpu_torch.models import build_model
+from torch_m3gnet_tpu_torch.parallel import launch, partition_graph
 from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
 from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
 from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
 from torch_m3gnet_tpu_torch.ops import windowed_take as wt
 from torch_m3gnet_tpu_torch.train import Trainer
 
+from _torch_parallel_ranks import PLAIN as PLAIN_NAMES
+
 # kernel name -> (module, the function its wrapper calls on a CPU tensor)
-PLAIN = {
-    "q_scatter": (fs, "q_scatter_plain"),
-    "r1_gather": (fs, "r1_gather_plain"),
-    "r2_gather": (fs, "r2_gather_plain"),
-    "fused_triplet_gate_sum": (ft, "fused_triplet_gate_sum_plain"),
-    "backward_pair": (ft, "backward_pair_plain"),
-    "windowed_take_fm": (wt, "take_fm_plain"),
-    "windowed_scatter_fm": (wt, "scatter_fm_plain"),
-    "sorted_segment_sum": (ss, "sorted_segment_sum_fm_plain"),
-}
+MODULES = {"factorized_stage": fs, "fused_triplet": ft, "sorted_segment": ss, "windowed_take": wt}
+PLAIN = {name: (MODULES[mod], attr) for name, (mod, attr) in PLAIN_NAMES.items()}
 
 
 @pytest.fixture
@@ -72,3 +69,30 @@ def test_launch_counts_match_chip_smoke(counted, mode, nb):
     counted.clear()
     Trainer(pot, cfg).train_step(batch)
     assert {n: counted[n] for n in names} == chip_smoke.expected_launches(mode, nb, True)
+
+
+@pytest.fixture(scope="module")
+def gp_launches():
+    rng = np.random.default_rng(1)
+    base = Structure.from_frac_coords(
+        np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
+        [29] * 4).supercell((2, 2, 2))
+    cell = Structure(base.lattice, base.cart_coords + 0.05 * rng.standard_normal((32, 3)),
+                     base.atomic_numbers)
+    g = graph_from_structure(cell, 5.0, 4.0)
+    g = g.replace(energy=np.array([-110.0], np.float32),
+                  forces=(0.1 * rng.standard_normal((32, 3))).astype(np.float32),
+                  stress=np.zeros((1, 6), np.float32))
+    settings = dict(embedding_dim=8, num_blocks=2)
+    return launch.run("tests._torch_parallel_ranks:gp_launches", 2, settings,
+                      ("factorized", "fused", "gather"), partition_graph(g, 2), timeout_s=300)
+
+
+@pytest.mark.parametrize("mode", ["factorized", "fused", "gather"])
+def test_gp_launches_per_rank_match_chip_smoke(gp_launches, mode):
+    """Each rank of a 2-shard graph: one gp eval launches one eval's
+    kernels, one gp train step one train step's (chip_smoke.py phase 11
+    asserts the eval's on the card)."""
+    for rank in gp_launches:
+        assert rank[mode]["eval"] == chip_smoke.expected_launches(mode, 2, False)
+        assert rank[mode]["train"] == chip_smoke.expected_launches(mode, 2, True)

@@ -184,8 +184,10 @@ def test_split_and_resume_match_jax(tmp_path, f64_runs):
 
 
 def test_more_than_one_device_raises(tmp_path):
+    """``num_devices=2`` with no process group of two ranks raises rather
+    than train on one (``test_torch_parallel_dp.py`` runs it on two)."""
     _, graphs = graphs_f64(cu_structures(3))
-    cfg = M3GNetConfig(root=str(tmp_path), num_devices=2, **SETTINGS)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    cfg = M3GNetConfig(root=str(tmp_path), num_devices=2, **{**SETTINGS, "batch_size": 4})
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         run.train_model(cfg, graphs, device="cpu")
 

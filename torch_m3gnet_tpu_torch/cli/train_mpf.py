@@ -9,6 +9,9 @@ from a sharded cache (``data.streaming``: MPF is ~187k structures);
 Usage:
     python -m torch_m3gnet_tpu_torch.cli.train_mpf \\
         --path MPF.2021.2.8 --config configs/mpf.yaml --root runs/mpf
+
+``--mesh N`` runs data-parallel under ``torchrun --nproc-per-node N``
+(see ``cli.train_mlearn``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ import json
 import os
 from typing import Optional, Sequence
 
-from torch_m3gnet_tpu_torch.cli.train_mlearn import add_common_args, config_from_args
+from torch_m3gnet_tpu_torch.cli.train_mlearn import (
+    add_common_args,
+    config_from_args,
+    rank_zero_first,
+)
 from torch_m3gnet_tpu_torch.data.dataset import GraphDataset
 from torch_m3gnet_tpu_torch.data.io import load_mpf_pickles
 from torch_m3gnet_tpu_torch.data.streaming import StreamingGraphDataset
@@ -51,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                      cache_dir=cache, name=name, shard_size=args.shard_size,
                                      num_workers=args.num_workers, num_types=config.num_types)
 
-    train, val, test = (dataset(s, n) for s, n in zip(splits, ("train", "val", "test")))
+    with rank_zero_first():
+        train, val, test = [dataset(s, n) for s, n in zip(splits, ("train", "val", "test"))]
     _, _, metrics = train_model(
         config, train, val_graphs=val, test_graphs=test, resume_checkpoint=args.resume,
         max_epochs=args.max_epochs, device=args.device,

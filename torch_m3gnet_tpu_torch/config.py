@@ -8,10 +8,11 @@ and ignored by this port: ``fused_factorized``, ``pallas_segment``,
 kept; of ``pallas_segment`` only the check of its value. The port always
 computes feature-major with full-f32 matmuls, and its sorted segment sums
 always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
-Three fields are not ported yet and raise ``NotImplementedError`` for
-anything but their defaults: ``compute_dtype`` (``"float32"`` only) and
-``remat_triplets`` (``False`` only) in ``build_model``, ``num_devices`` (1
-only) in ``train.run.train_model``.
+Two fields are not ported yet and raise ``NotImplementedError`` for
+anything but their defaults in ``build_model``: ``compute_dtype``
+(``"float32"`` only) and ``remat_triplets`` (``False`` only).
+``num_devices > 1`` runs ``train.run.train_model`` data-parallel on that
+many ranks of the process group.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class M3GNetConfig:
     # Size classes of the training batches (data.dataset.BucketLadder); 1:
     # one worst-case bucket.
     bucket_classes: int = 1
-    # Data-parallel devices of train_model; only 1 in this port so far.
+    # Data-parallel ranks of train_model (one process and one card each).
     num_devices: int = 1
     # Ignored by the port beyond a value check (TPU Pallas segment-sum knob):
     # the sorted segment sums always run the sorted-segment kernel.

@@ -287,6 +287,63 @@ def ladder_batch_iterator(
             )
 
 
+def sharded_batch_iterator(
+    graphs: Sequence[GraphBatch],
+    per_device_batch: int,
+    n_devices: int,
+    bucket: BucketSpec,
+    rng: Optional[np.random.Generator] = None,
+    rank: Optional[int] = None,
+) -> Iterator[GraphBatch]:
+    """Global batches of ``per_device_batch * n_devices`` graphs for the
+    data-parallel step (``parallel.dp``), shuffled when ``rng`` is given;
+    each is :func:`stack_global_batch` of its graphs (with ``rank``, only
+    that rank's row)."""
+    order = np.arange(len(graphs))
+    if rng is not None:
+        rng.shuffle(order)
+    global_bs = per_device_batch * n_devices
+    for start in range(0, len(order), global_bs):
+        idx = order[start : start + global_bs]
+        yield stack_global_batch([graphs[i] for i in idx], per_device_batch, n_devices, bucket,
+                                 rank=rank)
+
+
+def stack_global_batch(
+    graphs: Sequence[GraphBatch],
+    per_device_batch: int,
+    n_devices: int,
+    bucket: BucketSpec,
+    rank: Optional[int] = None,
+) -> GraphBatch:
+    """A (possibly short) global batch in the dp layout: ``graphs`` split
+    into ``n_devices`` contiguous rows of ``per_device_batch``, each padded
+    to ``bucket``, stacked along a new leading axis; every row carries the
+    global batch's count of real graphs. A row past the end of a short list
+    is fully padded, every mask zero, so the dp step's weights ignore it.
+    With ``rank``, only that row (row ``rank`` of the stack), built alone.
+    """
+    from torch_m3gnet_tpu_torch.parallel.dp import shard_stack
+
+    def row(d):
+        sel = graphs[d * per_device_batch : (d + 1) * per_device_batch]
+        padded = pad_batch(batch_graphs(list(sel) if sel else [graphs[0]]), bucket.max_nodes,
+                           bucket.max_edges, bucket.max_triplets, bucket.max_graphs)
+        if not sel:
+            padded = padded.replace(
+                node_mask=np.zeros_like(padded.node_mask),
+                edge_mask=np.zeros_like(padded.edge_mask),
+                triplet_mask=np.zeros_like(padded.triplet_mask),
+                graph_mask=np.zeros_like(padded.graph_mask),
+                num_graphs_real=0,
+            )
+        return padded
+
+    if rank is None:
+        return shard_stack([row(d) for d in range(n_devices)])
+    return row(rank).replace(num_graphs_real=sum(g.num_graphs_real for g in graphs))
+
+
 def split_dataset(
     n: int, val_ratio: float, test_ratio: float, seed: int
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -28,14 +28,16 @@ from torch_m3gnet_tpu_torch.data.triplets import compute_threebody
 # Index fields: int32 on the host, contiguous int32 tensors on the device.
 INDEX_FIELDS = (
     "atom_types", "node_graph", "edge_src", "edge_dst", "triplet_e1",
-    "triplet_e2", "n_node", "triplet_node_k", "edge_src_offsets", "triplet_e1_offsets",
-    "triplet_e2_order", "triplet_e2_offsets",
+    "triplet_e2", "n_node", "triplet_node_k", "halo_send_idx", "halo_recv_idx",
+    "edge_src_offsets", "triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets",
 )
 # The per-batch index of the kernels, built by to_torch (None on the host).
 BATCH_INDEX_FIELDS = INDEX_FIELDS[-4:]
 # The fields that the index is built from: replacing one (or the node
 # count) drops the index that a batch carries.
 _INDEX_SOURCES = ("edge_src", "triplet_e1", "triplet_e2")
+# Plain Python values, neither arrays nor tensors: kept as they are.
+STATIC_FIELDS = ("halo_offsets", "num_graphs_real")
 
 
 @dataclass(frozen=True)
@@ -89,6 +91,15 @@ class GraphBatch:
     triplet_e2_order: Optional[Any] = None  # (T,) i32
     triplet_e2_offsets: Optional[Any] = None  # (E + 1,) i32
 
+    # The graph-parallel halo plan of one shard (parallel.graph_shard.
+    # partition_graph; ops.halo): the local rows it sends, in one block of Hp
+    # rows per ring offset, and for each of its H halo slots the row of the
+    # received blocks that holds it. With a plan, edge_dst and triplet_node_k
+    # are extended-local ids in [0, N + H): local rows, then halo slots.
+    halo_send_idx: Optional[Any] = None  # (n_offsets * Hp,) i32
+    halo_recv_idx: Optional[Any] = None  # (H,) i32
+    halo_offsets: tuple = ()  # the ring offsets with traffic, one block each
+
     num_graphs_real: int = 0
 
     @property
@@ -118,6 +129,25 @@ class GraphBatch:
                 positions is not None and positions.shape[0] != self.num_nodes):
             kwargs = {**dict.fromkeys(BATCH_INDEX_FIELDS), **kwargs}
         return dataclasses.replace(self, **kwargs)
+
+    def row(self, i: int) -> "GraphBatch":
+        """Row ``i`` of a batch stacked along a leading axis (a device's
+        shard of ``parallel.graph_shard.partition_graph`` or of
+        ``parallel.dp.shard_stack``): every array field indexed at ``i``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)
+            if f.name not in STATIC_FIELDS and getattr(self, f.name) is not None})
+
+
+def stack_rows(rows: Sequence[GraphBatch], **static) -> GraphBatch:
+    """Host batches of identical shapes stacked along a new leading axis;
+    ``static`` replaces static fields of the first row (each row's must
+    otherwise agree)."""
+    first = rows[0]
+    return dataclasses.replace(first, **static, **{
+        f.name: np.stack([np.asarray(getattr(r, f.name)) for r in rows])
+        for f in dataclasses.fields(first)
+        if f.name not in STATIC_FIELDS and getattr(first, f.name) is not None})
 
 
 def graph_from_structure(
@@ -349,7 +379,8 @@ def pack_structures(
     )
 
 
-def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
+def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
+             num_dst_nodes: int | None = None) -> GraphBatch:
     """Copy a batch to ``device`` as torch tensors.
 
     Index fields become contiguous int32 tensors (the CUDA kernels take
@@ -359,11 +390,16 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
     :class:`GraphBatch` is accepted.
 
     A host batch is checked once here for what the kernels rely on:
-    ``edge_src`` sorted ascending, every node index in [0, N);
+    ``edge_src`` sorted ascending, every source in [0, N); every
+    destination (``edge_dst``, ``triplet_node_k``) in [0, D);
     ``triplet_e1`` sorted ascending, every edge index in [0, E);
     ``node_graph`` sorted ascending, every graph index in [0, B) (the strain
     stress sums by ``edge_graph = node_graph[edge_src]``, sorted only if
-    ``node_graph`` is).
+    ``node_graph`` is). D is N, or ``num_dst_nodes`` where the caller gives
+    it (a shard of the all-gather partition addresses the global nodes);
+    for a shard with a halo plan D is N + H, its extended-local ids, and
+    ``halo_send_idx`` must lie in [0, N) and ``halo_recv_idx`` in the
+    received blocks, [0, n_offsets * Hp).
 
     ``index`` names the parts of the kernels' per-batch index to build
     (of ``BATCH_INDEX_FIELDS``: the offsets of ``edge_src`` and
@@ -380,20 +416,32 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
     unknown = set(index) - set(BATCH_INDEX_FIELDS)
     if unknown:
         raise ValueError(f"unknown batch index fields {sorted(unknown)}")
-    if getattr(batch, "halo_send_idx", None) is not None:
-        raise NotImplementedError(
-            "graph-parallel batches (a halo plan) come with the port's parallel slice"
-        )
     src = batch.edge_src
     host = not isinstance(src, torch.Tensor)
     if host:
         src, dst = np.asarray(src), np.asarray(batch.edge_dst)
         n = int(np.asarray(batch.positions).shape[0])
+        send = getattr(batch, "halo_send_idx", None)
+        n_dst = num_dst_nodes or n
+        if send is not None:
+            send, recv = np.asarray(send), np.asarray(batch.halo_recv_idx)
+            n_off = len(batch.halo_offsets)
+            n_dst = n + recv.size
+            if (send.size % n_off if n_off else send.size):
+                raise ValueError(f"halo_send_idx holds {send.size} rows, not one block "
+                                 f"per ring offset of {batch.halo_offsets}")
+            for name, idx, bound in (("halo_send_idx", send, n),
+                                     ("halo_recv_idx", recv, send.size)):
+                if idx.size and (idx.min() < 0 or idx.max() >= bound):
+                    raise ValueError(f"{name} holds a row outside [0, {bound})")
         if np.any(np.diff(src) < 0):
             raise ValueError("edge_src must be sorted ascending")
-        for name, idx in (("edge_src", src), ("edge_dst", dst)):
-            if idx.size and (idx.min() < 0 or idx.max() >= n):
-                raise ValueError(f"{name} holds a node index outside [0, {n})")
+        node_k = getattr(batch, "triplet_node_k", None)
+        for name, idx, bound in (("edge_src", src, n), ("edge_dst", dst, n_dst),
+                                 ("triplet_node_k", node_k, n_dst)):
+            idx = np.asarray(idx if idx is not None else ())
+            if idx.size and (idx.min() < 0 or idx.max() >= bound):
+                raise ValueError(f"{name} holds a node index outside [0, {bound})")
         e1, e2 = np.asarray(batch.triplet_e1), np.asarray(batch.triplet_e2)
         if np.any(np.diff(e1) < 0):
             raise ValueError("triplet_e1 must be sorted ascending")
@@ -407,7 +455,7 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
             raise ValueError(f"node_graph holds a graph index outside [0, {nb})")
 
     def conv(name, a):
-        if a is None or name == "num_graphs_real":
+        if a is None or name in STATIC_FIELDS:
             return a
         if name in BATCH_INDEX_FIELDS and host:  # built below from the copied indices
             return None
@@ -420,7 +468,7 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS) -> GraphBatch:
 
     out = GraphBatch(
         **{f.name: conv(f.name, getattr(batch, f.name, None))
-           for f in dataclasses.fields(GraphBatch)}
+           for f in dataclasses.fields(GraphBatch) if hasattr(batch, f.name)}
     )
     from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
     from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets

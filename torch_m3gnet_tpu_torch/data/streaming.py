@@ -1,8 +1,7 @@
 """Streaming graph dataset: a sharded npz cache and bounded-memory iteration.
 
-Own copy of the single-device part of ``torch_m3gnet_tpu.data.streaming``,
-for datasets too large to hold as one list (MPF.2021.2.8, ~187k
-structures):
+Own copy of ``torch_m3gnet_tpu.data.streaming``, for datasets too large
+to hold as one list (MPF.2021.2.8, ~187k structures):
 
 - **Build**: structures become graphs (``data.dataset.build_graphs``, a
   spawned process pool when ``num_workers > 1``) and are written in shards
@@ -20,6 +19,11 @@ structures):
   ``train.elemental`` from the index alone (normal equations, pinv).
 - **Bucketing**: ``ladder_from_index`` and ``stream_ladder_batches`` give
   ``BucketLadder``'s per-class padding without reading a shard.
+- **Data parallelism**: ``stream_sharded_batches`` and
+  ``stream_ladder_sharded_batches`` give the dp layout
+  (``data.dataset.stack_global_batch``), each rank only its own row
+  (every rank reads every shard); ``HostShardView`` is one host's stride
+  of the shards.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch_m3gnet_tpu_torch.data.dataset import (
     BucketSpec,
     build_graphs,
     pack_graphs,
+    stack_global_batch,
     unpack_graphs,
 )
 from torch_m3gnet_tpu_torch.data.graph import GraphBatch, batch_graphs, pad_batch, round_up
@@ -259,6 +264,19 @@ def _padded(graphs: Sequence[GraphBatch], b: BucketSpec) -> GraphBatch:
                      b.max_graphs)
 
 
+def _groups(ds, size: int, rng: Optional[np.random.Generator]) -> Iterator[list]:
+    """The streamed graphs in lists of ``size`` (the last may be short)."""
+    pending: list[GraphBatch] = []
+    with contextlib.closing(ds.iter_graphs(rng=rng)) as graphs:
+        for g in graphs:
+            pending.append(g)
+            if len(pending) == size:
+                yield pending
+                pending = []
+    if pending:
+        yield pending
+
+
 def stream_batches(
     ds: StreamingGraphDataset,
     batch_size: int,
@@ -267,15 +285,71 @@ def stream_batches(
     drop_last: bool = False,
 ) -> Iterator[GraphBatch]:
     """Padded batches of one bucket from a streaming dataset."""
-    pending: list[GraphBatch] = []
-    with contextlib.closing(ds.iter_graphs(rng=rng)) as graphs:
-        for g in graphs:
-            pending.append(g)
-            if len(pending) == batch_size:
-                yield _padded(pending, bucket)
-                pending = []
-    if pending and not drop_last:
-        yield _padded(pending, bucket)
+    for graphs in _groups(ds, batch_size, rng):
+        if len(graphs) < batch_size and drop_last:
+            return
+        yield _padded(graphs, bucket)
+
+
+class HostShardView:
+    """One host's (one rank's) view of a streaming dataset: the shards
+    ``host_id::num_hosts``.
+
+    Every host opens the same shard cache and iterates a disjoint stride of
+    shards. ``len``, the index arrays, ``bucket`` and the streaming
+    elemental fit see only the viewed graphs; buckets and ladders built
+    from the whole index stay valid for every host (each class bucket is a
+    worst case over a superset). ``train_model`` does not use it, as JAX's
+    does not: its dp ranks keep the single-process batch order.
+    """
+
+    def __init__(self, ds: StreamingGraphDataset, host_id: int, num_hosts: int):
+        if not (0 <= host_id < num_hosts):
+            raise ValueError(f"host_id {host_id} not in [0, {num_hosts})")
+        self.ds = ds
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.shard_ids = list(range(host_id, ds.n_shards, num_hosts))
+        n = len(ds)
+        starts = [s * ds.shard_size for s in self.shard_ids]
+        stops = [min(st + ds.shard_size, n) for st in starts]
+        sel = (np.concatenate([np.arange(a, b) for a, b in zip(starts, stops)])
+               if self.shard_ids else np.zeros(0, np.int64))
+        self._sel = sel
+        self.sizes_n = ds.sizes_n[sel]
+        self.sizes_e = ds.sizes_e[sel]
+        self.sizes_t = ds.sizes_t[sel]
+        self.energies = ds.energies[sel]
+        self.species = ds.species[sel]
+        self.meta = ds.meta
+        self.shard_size = ds.shard_size
+        self.n_shards = len(self.shard_ids)
+
+    def __len__(self) -> int:
+        return int(self._sel.size)
+
+    def load_shard(self, i: int) -> list[GraphBatch]:
+        return self.ds.load_shard(self.shard_ids[i])
+
+    # the iteration and bucket machinery, by duck typing
+    iter_graphs = StreamingGraphDataset.iter_graphs
+    bucket = StreamingGraphDataset.bucket
+
+
+def stream_sharded_batches(
+    ds: StreamingGraphDataset,
+    per_device_batch: int,
+    n_devices: int,
+    bucket: BucketSpec,
+    rng: Optional[np.random.Generator] = None,
+    rank: Optional[int] = None,
+) -> Iterator[GraphBatch]:
+    """Data-parallel batches from a streaming dataset, in bounded memory:
+    every ``per_device_batch * n_devices`` streamed graphs become one
+    ``data.dataset.stack_global_batch`` of one bucket (with ``rank``, that
+    rank's row); a short tail leaves its last rows fully padded."""
+    for graphs in _groups(ds, per_device_batch * n_devices, rng):
+        yield stack_global_batch(graphs, per_device_batch, n_devices, bucket, rank=rank)
 
 
 def fit_elemental_energies_streaming(ds: StreamingGraphDataset) -> tuple[np.ndarray, float]:
@@ -325,30 +399,53 @@ def ladder_from_index(
     return BucketLadder(buckets=tuple(buckets), assignments=assignments)
 
 
+def _ladder_groups(ds, size: int, ladder: BucketLadder,
+                   rng: Optional[np.random.Generator]) -> Iterator[tuple[int, list]]:
+    """(class, graphs) of each batch of a size-class ladder: graphs buffer
+    per class as the shards go by, a class's batch goes out when it holds
+    ``size``, the leftovers at the end. The class of a graph comes from its
+    place in the index, so the shards stream in order (``iter_graphs``
+    without ``rng``); ``rng`` shuffles within each emitted batch and the
+    order of the leftovers."""
+    buffers: dict[int, list] = {}
+    with contextlib.closing(ds.iter_graphs(rng=None)) as graphs:
+        for pos, g in enumerate(graphs):
+            ci = int(ladder.assignments[pos])
+            buffers.setdefault(ci, []).append(g)
+            if len(buffers[ci]) == size:
+                batch = buffers.pop(ci)
+                if rng is not None:
+                    batch = [batch[i] for i in rng.permutation(len(batch))]
+                yield ci, batch
+    leftover = list(buffers.items())
+    if rng is not None:
+        rng.shuffle(leftover)
+    yield from leftover
+
+
 def stream_ladder_batches(
     ds: StreamingGraphDataset,
     batch_size: int,
     ladder: BucketLadder,
     rng: Optional[np.random.Generator] = None,
 ) -> Iterator[GraphBatch]:
-    """Streaming batches padded per size class, in bounded memory: graphs
-    buffer per class as the shards go by, a class's batch goes out when it
-    fills, and the leftovers go out padded at the end. The class of a graph
-    comes from its place in the index, so the shards stream in order
-    (``iter_graphs`` without ``rng``); ``rng`` shuffles within each emitted
-    batch and the order of the leftovers."""
-    buffers: dict[int, list] = {}
-    with contextlib.closing(ds.iter_graphs(rng=None)) as graphs:
-        for pos, g in enumerate(graphs):
-            ci = int(ladder.assignments[pos])
-            buffers.setdefault(ci, []).append(g)
-            if len(buffers[ci]) == batch_size:
-                batch = buffers.pop(ci)
-                if rng is not None:
-                    batch = [batch[i] for i in rng.permutation(len(batch))]
-                yield _padded(batch, ladder.buckets[ci])
-    leftover = list(buffers.items())
-    if rng is not None:
-        rng.shuffle(leftover)
-    for ci, batch in leftover:
-        yield _padded(batch, ladder.buckets[ci])
+    """Streaming batches padded per size class, in bounded memory (the
+    batches of ``_ladder_groups``)."""
+    for ci, graphs in _ladder_groups(ds, batch_size, ladder, rng):
+        yield _padded(graphs, ladder.buckets[ci])
+
+
+def stream_ladder_sharded_batches(
+    ds: StreamingGraphDataset,
+    per_device_batch: int,
+    n_devices: int,
+    ladder: BucketLadder,
+    rng: Optional[np.random.Generator] = None,
+    rank: Optional[int] = None,
+) -> Iterator[GraphBatch]:
+    """Data-parallel batches per size class: each class's global batch of
+    ``per_device_batch * n_devices`` graphs is one ``stack_global_batch``
+    in that class's bucket (with ``rank``, that rank's row)."""
+    for ci, graphs in _ladder_groups(ds, per_device_batch * n_devices, ladder, rng):
+        yield stack_global_batch(graphs, per_device_batch, n_devices, ladder.buckets[ci],
+                                 rank=rank)

@@ -26,6 +26,17 @@ strain stress by ``edge_graph``.
   keeps its graph, so a loss on forces and stress differentiates to the
   weights);
 - :func:`build_model` assembles a potential from a config on a device.
+
+Graph parallelism (``parallel.graph_shard``) runs this same module on each
+shard of one partitioned graph, with ``group`` the process group of the
+shards: every read of node rows through a destination id (positions for
+the edge vectors, ``vj``, the gate gather of each mode) goes through
+``ops.halo.extend_nodes_fm``, which appends the rows that other shards own
+(the halo exchange, or the all-gather of a partition without a halo plan).
+Sums by ``edge_src`` stay local, as every edge belongs to its source's
+shard. The potential sums the forces' destination side into those extended
+rows and sends them home (``ops.halo.reduce_extended_fm``), and all-reduces
+the energy and the virial over the group.
 """
 
 from __future__ import annotations
@@ -50,6 +61,12 @@ from torch_m3gnet_tpu_torch.ops.basis import (
 )
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
 from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum, triplet_e2_order
+from torch_m3gnet_tpu_torch.ops.halo import (
+    all_reduce,
+    extend_nodes_fm,
+    extended_nodes,
+    reduce_extended_fm,
+)
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
 from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets, sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
@@ -69,9 +86,20 @@ class PotentialOutput:
     atomic_energy: torch.Tensor  # (N,) eV
 
 
+def take_dst_fm(x_fm: torch.Tensor, graph: GraphBatch, idx: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """``x_fm`` (F, N) read at the destination ids ``idx`` (columns); on a
+    shard of a partitioned graph (``group`` given) through the columns
+    extended with those that other shards own."""
+    if group is not None:
+        x_fm = extend_nodes_fm(x_fm, graph, group)
+    return take_fm(x_fm, idx)
+
+
 def edge_vectors_fm(graph: GraphBatch, positions: torch.Tensor,
-                    lattice: torch.Tensor) -> torch.Tensor:
-    """(3, E) pair vectors r_e = pos[dst] + shift @ lattice[graph] - pos[src]."""
+                    lattice: torch.Tensor, group=None) -> torch.Tensor:
+    """(3, E) pair vectors r_e = pos[dst] + shift @ lattice[graph] - pos[src]
+    (``group``: see :func:`take_dst_fm`)."""
     pos_fm = positions.t()  # (3, N)
     edge_graph = graph.node_graph.index_select(0, graph.edge_src)  # (E,)
     lat_e = take_fm(lattice.reshape(-1, 9).t(), edge_graph)  # (9, E): rows lattice[p, q]
@@ -79,7 +107,8 @@ def edge_vectors_fm(graph: GraphBatch, positions: torch.Tensor,
     shift_vec = torch.stack(
         [sum(shift_fm[p] * lat_e[3 * p + q] for p in range(3)) for q in range(3)]
     )
-    return take_fm(pos_fm, graph.edge_dst) + shift_vec - take_fm(pos_fm, graph.edge_src)
+    return (take_dst_fm(pos_fm, graph, graph.edge_dst, group) + shift_vec
+            - take_fm(pos_fm, graph.edge_src))
 
 
 class M3GNet(nn.Module):
@@ -156,8 +185,10 @@ class M3GNet(nn.Module):
                  "fused": ("triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets")}
         return ("edge_src_offsets",) + extra.get(self.threebody_mode, ())
 
-    def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor):
-        """Returns (per-graph energy (B,), per-atom energy (N,)), both in eV."""
+    def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor, group=None):
+        """Returns (per-graph energy (B,), per-atom energy (N,)), both in eV.
+        On a shard of a partitioned graph (``group`` given) both are the
+        shard's own share: the energy of its nodes."""
         dtype = r_vec_fm.dtype
         n_max = self.n_max
         rc = self.cutoff / self.length_scale
@@ -179,9 +210,9 @@ class M3GNet(nn.Module):
         e_fm = F.silu(self.edge_init(ew_fm))  # (D, E)
 
         if self.threebody_mode == "factorized":
-            triplet_aggregate = self._factorized_stage(graph, r_fm, dist)
+            triplet_aggregate = self._factorized_stage(graph, r_fm, dist, group)
         else:
-            triplet_aggregate = self._triplet_stage(graph, r_fm, dist)
+            triplet_aggregate = self._triplet_stage(graph, r_fm, dist, group)
 
         # --- interaction blocks
         for b in range(self.num_blocks):
@@ -189,7 +220,7 @@ class M3GNet(nn.Module):
             e_fm = e_fm + getattr(self, f"three_mlp_{b}")(triplet_aggregate(gate_fm))
 
             vi = take_fm(v_fm, src)
-            vj = take_fm(v_fm, dst)
+            vj = take_dst_fm(v_fm, graph, dst, group)
             concat = torch.cat([vi, vj, e_fm], 0)  # (3D, E)
             e_fm = e_fm + getattr(self, f"conv_edge_{b}")(concat) * getattr(
                 self, f"conv_edge_w_{b}"
@@ -209,7 +240,7 @@ class M3GNet(nn.Module):
         total = self.energy_scale * scaled_total * graph.graph_mask.to(dtype)
         return total, self.energy_scale * scaled_atomic
 
-    def _factorized_stage(self, graph: GraphBatch, r_fm, dist):
+    def _factorized_stage(self, graph: GraphBatch, r_fm, dist, group=None):
         """The factorized three-body stage: gate (LN, N) -> (LN, E), from
         per-edge factors only (the j = k diagonal that the triplet
         enumeration excludes is subtracted analytically, P_l(1) = 1)."""
@@ -229,14 +260,14 @@ class M3GNet(nn.Module):
         def triplet_aggregate(gate_fm):
             # A padded edge has gm = 0 (fc_e carries the edge mask), so it
             # adds nothing to A and its own output is scaled by fcn = 0.
-            g = chifc * take_fm(gate_fm, dst)  # (ln, E)
+            g = chifc * take_dst_fm(gate_fm, graph, dst, group)  # (ln, E)
             a = q_scatter(sh_fm, g, src, graph.num_nodes, l_max, n_max)  # (M*n, N)
             proj = r1_gather(a, sh_fm, src, l_max, n_max)  # (ln, E)
             return fcn * (proj - g)
 
         return triplet_aggregate
 
-    def _triplet_stage(self, graph: GraphBatch, r_fm, dist):
+    def _triplet_stage(self, graph: GraphBatch, r_fm, dist, group=None):
         """The per-triplet three-body stage (fused or gather): gate (LN, N)
         -> (LN, E) with out[:, e] = sum_{t: e1[t]=e} basis[:, t] *
         gate[:, k(t)], basis (LN, T) = chi_ln(r_ik) c_l P_l(cos jik)
@@ -280,13 +311,14 @@ class M3GNet(nn.Module):
             # reads of it by e2 are then window-local. The e2 order goes with
             # it, for the backward kernel's sum by e2.
             return lambda gate_fm: fused_triplet_gate_sum(
-                basis_fm, take_fm(gate_fm, dst), e1, e2, num_edges, e2_order
+                basis_fm, take_dst_fm(gate_fm, graph, dst, group), e1, e2, num_edges, e2_order
             )
         node_k = graph.triplet_node_k
         if node_k is None:
             node_k = dst.index_select(0, e2)
         return lambda gate_fm: sorted_segment_sum_fm(
-            basis_fm * take_fm(gate_fm, node_k), e1, num_edges, graph.triplet_e1_offsets
+            basis_fm * take_dst_fm(gate_fm, graph, node_k, group), e1, num_edges,
+            graph.triplet_e1_offsets
         )
 
 
@@ -320,23 +352,32 @@ class M3GNetPotential(nn.Module):
         self.model = model
         self.stress_mode = stress_mode
 
-    def forward(self, batch, create_graph: bool = False) -> PotentialOutput:
+    def forward(self, batch, create_graph: bool = False, group=None) -> PotentialOutput:
+        """E/F/S of ``batch``. With ``group`` (a process group), ``batch`` is
+        this rank's shard of a partitioned graph
+        (``parallel.graph_shard``): forces and atomic energies are its own
+        nodes', the energy and the stress the whole graph's."""
         param = self.model.edge_init.kernel
-        graph = to_torch(batch, param.device, param.dtype, self.model.batch_index)
+        graph = to_torch(batch, param.device, param.dtype, self.model.batch_index,
+                         num_dst_nodes=None if group is None else extended_nodes(batch, group))
         positions, lattice = graph.positions, graph.lattice
         nb = graph.num_graphs
         with torch.enable_grad():
-            r_fm = edge_vectors_fm(graph, positions, lattice)  # (3, E)
+            r_fm = edge_vectors_fm(graph, positions, lattice, group)  # (3, E)
             if not r_fm.requires_grad:
                 r_fm.requires_grad_(True)
-            energy, atomic = self.model(graph, r_fm)
+            energy, atomic = self.model(graph, r_fm, group)
             (g_fm,) = torch.autograd.grad(energy.sum(), r_fm, create_graph=create_graph)  # (3, E)
 
         src, dst = graph.edge_src, graph.edge_dst
         nmask = graph.node_mask.to(g_fm.dtype)[None, :]
+        if group is None:
+            dst_sum = segment_sum_fm(g_fm, dst, graph.num_nodes)
+        else:  # into the extended rows, then home to their owners
+            dst_sum = reduce_extended_fm(
+                segment_sum_fm(g_fm, dst, extended_nodes(graph, group)), graph, group)
         forces = ((
-            sorted_segment_sum_fm(g_fm, src, graph.num_nodes, graph.edge_src_offsets)
-            - segment_sum_fm(g_fm, dst, graph.num_nodes)
+            sorted_segment_sum_fm(g_fm, src, graph.num_nodes, graph.edge_src_offsets) - dst_sum
         ) * nmask).t()  # (N, 3)
 
         volumes = torch.abs(
@@ -346,10 +387,13 @@ class M3GNetPotential(nn.Module):
             edge_graph = graph.node_graph.index_select(0, src)
             outer_fm = (r_fm[:, None, :] * g_fm[None, :, :]).reshape(9, -1)
             per_graph = sorted_segment_sum_fm(outer_fm, edge_graph, nb).t().reshape(-1, 3, 3)
-            per_graph = 0.5 * (per_graph + per_graph.transpose(1, 2))
         else:
             outer = positions[:, :, None] * forces[:, None, :]  # (N, 3, 3)
             per_graph = segment_sum(outer.reshape(-1, 9), graph.node_graph, nb).reshape(-1, 3, 3)
+        if group is not None:
+            energy, per_graph = all_reduce(energy, group), all_reduce(per_graph, group)
+        if self.stress_mode == "strain":
+            per_graph = 0.5 * (per_graph + per_graph.transpose(1, 2))
         gmask = graph.graph_mask.to(g_fm.dtype)
         stress = _voigt(per_graph) / volumes[:, None] * gmask[:, None]
 

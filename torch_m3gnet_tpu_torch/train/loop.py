@@ -24,7 +24,11 @@ A training step differentiates forces and stress, themselves a gradient:
 the potential runs with ``create_graph=True`` and the loss's backward goes
 through every kernel's VJP of a VJP.
 
-Not here yet: the data- and graph-parallel steps.
+The data- and graph-parallel trainers (``parallel.dp.DataParallel``,
+``parallel.graph_shard.GraphParallelTrainer``) are Trainers whose
+``train_step`` and ``eval_step`` combine the ranks' gradients and metrics
+and pass the gradient to :meth:`Trainer.apply_gradients`; only their
+writer rank (``is_writer``) writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -139,6 +143,8 @@ class Trainer:
     optionally forces and stress.
     """
 
+    is_writer = True  # writes metrics.jsonl, TensorBoard and checkpoints
+
     def __init__(
         self,
         potential,
@@ -155,7 +161,7 @@ class Trainer:
         # Batches prepared ahead by train.prefetch in fit and evaluate; 0: none.
         self.prefetch = prefetch
         self._tb = None
-        if log_tensorboard:
+        if log_tensorboard and self.is_writer:
             try:  # imported here: importing the port loads no logging package
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:
@@ -181,10 +187,20 @@ class Trainer:
         if lr is not None:
             self.set_lr(lr)
         loss, metrics = loss_and_metrics(self.potential, batch, self.config, create_graph=True)
+        self.apply_gradients(self.gradients(loss))
+        return _detached(metrics)
+
+    def gradients(self, loss) -> list[torch.Tensor]:
+        """The weights' gradient of ``loss``. A weight the loss does not
+        reach gets a zero gradient, as in JAX: Adam then leaves it where it
+        is and its step count stays in line."""
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        # A weight the loss does not reach gets a zero gradient, as in JAX:
-        # Adam then leaves it where it is and its step count stays in line.
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+
+    def apply_gradients(self, grads: list[torch.Tensor]) -> None:
+        """One optimizer step with ``grads`` (one per weight), or one
+        accumulation step: the running mean of the window's gradients is
+        applied once every ``accumulate_grad_batches`` calls."""
         self.step += 1
         if self.accumulate > 1:
             n = self._mini_step
@@ -192,14 +208,13 @@ class Trainer:
             self._acc = [a + (g - a) / (n + 1) for a, g in zip(acc, grads)]
             self._mini_step = (n + 1) % self.accumulate
             if self._mini_step:
-                return _detached(metrics)
+                return
             grads, self._acc = self._acc, None
         for p, g in zip(self.params, grads):
             p.grad = g
         self.optimizer.step()
         for p in self.params:
             p.grad = None
-        return _detached(metrics)
 
     def eval_step(self, batch) -> dict[str, torch.Tensor]:
         with torch.no_grad():
@@ -260,7 +275,7 @@ class Trainer:
             if self.log_param_stats:
                 for name, p in self._named_weights():
                     row[f"param_norm/{name}"] = float(torch.linalg.vector_norm(p.detach()))
-            if epoch % log_every == 0:
+            if self.is_writer and epoch % log_every == 0:
                 with open(log_path, "a") as f:
                     f.write(json.dumps(row) + "\n")
             if self._tb is not None:

@@ -12,8 +12,8 @@ each tensor is marked with ``record_stream`` for the consumer's stream, so
 the caching allocator reuses none of its memory until the consumer's work
 on it is done.
 
-Single-device only: the data- and graph-parallel steps come with the
-port's parallel slice.
+Under data or graph parallelism each rank prefetches its own row of each
+batch to its own card (``parallel.dp.ParallelTrainer``).
 """
 
 from __future__ import annotations
