@@ -156,6 +156,24 @@ Phases (each raises on failure, so any failure exits non-zero):
    batch on the mlearn training set: a rank's full stream as
    ``train_model`` reads it, one device's, and a rank's stride of shards).
 
+12. bf16 and remat (``compute_dtype="bfloat16"``, ``remat_triplets=True``):
+   phase 4's weights evaluate the bench batch under bf16 in the factorized,
+   fused and gather modes, each against the CPU's bf16 (plain versions)
+   within ``BF16_GAP_FRACTION`` of the card's own bf16-f32 gap per field,
+   that gap non-zero and within ``BF16_CONTROL`` of the CPU's (the casts
+   act on the card), the energies within the JAX package's bound of f32,
+   the launches exactly the f32 eval's, the eval timed beside f32's; the
+   seed-0 student under bf16 in the factorized and fused modes: one step's
+   loss and whole weight gradient against the CPU's bf16 step (the same
+   gap rule, phase 6's f32 step on either side), one step's launches, five
+   steps that lower the loss, the step's ms and peak; ``remat_triplets`` in
+   all three modes: one step's loss and every weight gradient against the
+   step without it (``TRAIN_TOL``), the launches of one eval and one train
+   step with the recompute (``expected_launches(..., remat=True)``), peak GB
+   and step ms beside the step without remat; bf16 and remat together
+   (factorized) against the bf16 step. Prints the ``{"precision_remat":
+   ...}`` line.
+
 The last line is ``{"ok": true, "device": {...}}``; the ``{"kernels": [...]}``
 line and the card's ``nvidia-smi`` line come just before it.
 """
@@ -523,7 +541,7 @@ def all_launches() -> dict[str, int]:
     return {name: n for mod in kernel_modules() for name, n in mod.LAUNCHES.items()}
 
 
-def expected_launches(mode: str, nb: int, train: bool) -> dict[str, int]:
+def expected_launches(mode: str, nb: int, train: bool, remat: bool = False) -> dict[str, int]:
     """Kernel launches of one eval (or one train step) of ``nb`` blocks.
 
     An eval runs each three-body kernel forward and in the backward pass of
@@ -532,17 +550,21 @@ def expected_launches(mode: str, nb: int, train: bool) -> dict[str, int]:
     step adds one per block, where the double backward differentiates the
     node aggregation's VJP (the gather), whose VJP is B8: 2 nb + 2. The
     gather mode's triplet->edge sum adds one per block to an eval and two
-    to a train step."""
+    to a train step. ``remat``: every backward pass that reaches a block's
+    stage (one in an eval, two in a train step) recomputes its forward: B1
+    and B2, B4, or the gather mode's B8 sum once more per block and pass.
+    ``compute_dtype`` changes no count."""
     counts = {name: 0 for name in all_launches()}
+    redo = (2 if train else 1) * nb if remat else 0
     if mode == "factorized":
         for name in ("q_scatter", "r1_gather", "r2_gather"):
-            counts[name] = (6 if train else 2) * nb
+            counts[name] = (6 if train else 2) * nb + (redo if name != "r2_gather" else 0)
     elif mode == "fused":
-        counts.update(fused_triplet_gate_sum=(3 if train else 1) * nb,
+        counts.update(fused_triplet_gate_sum=(3 if train else 1) * nb + redo,
                       backward_pair=(3 if train else 1) * nb,
                       windowed_take_fm=4 if train else 2, windowed_scatter_fm=2)
     counts["sorted_segment_sum"] = (2 * nb + 2 if train else nb + 2) + (
-        nb * (2 if train else 1) if mode == "gather" else 0)
+        nb * (2 if train else 1) + redo if mode == "gather" else 0)
     return counts
 
 
@@ -683,13 +705,15 @@ def cpu_reference(cfg, pot, batch):
 
 
 def check_model(pot, batch, gbatch, cfg):
-    """One counted factorized evaluation on the card, compared with the CPU."""
+    """One counted factorized evaluation on the card, compared with the CPU;
+    returns (card output, launches, the CPU's E/F/S)."""
     expected = expected_launches("factorized", cfg.num_blocks, False)
     out, launches = counted_eval(pot, gbatch, expected)
-    check_outputs("card vs CPU", out, cpu_reference(cfg, pot, batch), gbatch, MODEL_TOL)
+    ref = cpu_reference(cfg, pot, batch)
+    check_outputs("card vs CPU", out, ref, gbatch, MODEL_TOL)
     e = out.energy.detach().cpu().numpy()
     print(f"  energy[:4] (eV) = {e[:4].tolist()}")
-    return out, launches
+    return out, launches, detached(ref)
 
 
 def check_fused_model(pot, out_factorized, batch, gbatch, cfg):
@@ -702,11 +726,12 @@ def check_fused_model(pot, out_factorized, batch, gbatch, cfg):
     pot_f.load_state_dict(pot.state_dict())
     expected = expected_launches("fused", cfg.num_blocks, False)
     out, launches = counted_eval(pot_f, gbatch, expected)
-    check_outputs("fused card vs CPU", out, cpu_reference(cfg_f, pot_f, batch), gbatch, MODEL_TOL)
+    ref = cpu_reference(cfg_f, pot_f, batch)
+    check_outputs("fused card vs CPU", out, ref, gbatch, MODEL_TOL)
     for name in ("energy", "forces", "stress", "atomic_energy"):
         check(f"{name} fused vs factorized (card)", getattr(out, name).detach(),
               getattr(out_factorized, name).detach(), MODE_TOL)
-    return pot_f, out, launches
+    return pot_f, out, launches, detached(ref)
 
 
 def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int, object]]:
@@ -821,7 +846,7 @@ def check_training(mode, cfg, host_train, card_train):
     """The student (seed 0) in ``mode``: one step's
     loss and gradients against the CPU, the launches of one counted train
     step, and five steps whose loss falls. Returns (trainer, first loss,
-    launches of one step)."""
+    launches of one step, the CPU's step-1 loss and gradients)."""
     import torch
 
     from torch_m3gnet_tpu_torch.models import build_model
@@ -858,7 +883,7 @@ def check_training(mode, cfg, host_train, card_train):
     finite = all(bool(p.isfinite().all()) for p in pot.parameters())
     if not (finite and all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{mode} training: finite weights {finite}, losses {losses}")
-    return trainer, float(loss), launches
+    return trainer, float(loss), launches, (cpu_loss, cpu_grads)
 
 
 def time_step(step, reps: int = 50, warmup: int = 5) -> tuple[float, float]:
@@ -2978,6 +3003,280 @@ def check_parallel(name, smi, mlearn: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: compute_dtype="bfloat16" and remat_triplets=True
+# ---------------------------------------------------------------------------
+
+# Card vs CPU under bf16, as a fraction of the card's own bf16-f32 gap (the
+# largest magnitude of each field, of the loss, of the whole weight
+# gradient). Both run the same rounding points; their f32 sums go in other
+# orders (kernels, cuBLAS, index_add's atomics), and every such difference
+# that straddles a bf16 rounding boundary moves a value by a bf16 ulp, as
+# the gap's own roundings do, only far more rarely. The CPU tests hold the
+# port to JAX at 5 % of JAX's gap (tests/test_torch_precision_remat.py:
+# <= 0.2 % on E/F/S, ~3e-4 on the whole gradient).
+BF16_GAP_FRACTION = 0.1
+# The card's bf16-f32 gap against the CPU's: the casts act on the card.
+BF16_CONTROL = (0.5, 2.0)
+# bf16 energies against f32: the JAX package's own bound
+# (tests/test_perf_options.py: rtol 0.05, atol 0.05).
+BF16_ENERGY_TOL = 0.05
+FIELDS = ("energy", "forces", "stress")
+
+
+def detached(out) -> dict:
+    return {f: getattr(out, f).detach() for f in FIELDS}
+
+
+def grad_vector(grads: dict):
+    """Every weight gradient of ``grads`` (by name) as one f64 CPU vector."""
+    import torch
+
+    return torch.cat([grads[k].reshape(-1).double().cpu() for k in sorted(grads)])
+
+
+def gap_check(label: str, card16, cpu16, card32, cpu32) -> dict:
+    """``card16`` within BF16_GAP_FRACTION of the card's bf16-f32 gap of
+    ``cpu16``, both gaps non-zero and within BF16_CONTROL of each other."""
+    import torch
+
+    card16, cpu16, card32, cpu32 = (torch.as_tensor(x).detach().double().cpu()
+                                    for x in (card16, cpu16, card32, cpu32))
+    gap = float((card16 - card32).abs().max())
+    cpu_gap = float((cpu16 - cpu32).abs().max())
+    err = float((card16 - cpu16).abs().max())
+    frac = err / gap if gap > 0 else float("inf")
+    control = gap / cpu_gap if cpu_gap > 0 else float("inf")
+    ok = frac <= BF16_GAP_FRACTION and BF16_CONTROL[0] <= control <= BF16_CONTROL[1]
+    print(f"  {label}: bf16 card vs CPU {err:.3e} = {frac:.3e} of the card's bf16-f32 gap "
+          f"{gap:.3e} (tol {BF16_GAP_FRACTION}); card gap / CPU gap {control:.3f} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: bf16 card vs CPU {frac:.3e} of the gap, "
+                             f"control {control:.3f}")
+    return {"err": err, "gap": gap, "frac_of_gap": frac, "cpu_gap": cpu_gap, "control": control}
+
+
+def check_bf16_eval(state, batch, gbatch, cfg, cpu_f32: dict) -> dict:
+    """bf16 E/F/S in each mode on the card (phase 4's weights) against the
+    CPU's bf16 and the card's f32, the launches those of the f32 eval, the
+    energies within the JAX package's bound of f32, and each eval timed
+    beside f32's."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+
+    out = {}
+    for mode in ("factorized", "fused", "gather"):
+        c32 = cfg.replace(threebody_mode=mode)
+        c16 = c32.replace(compute_dtype="bfloat16")
+        expected = expected_launches(mode, cfg.num_blocks, False)
+        pots = {}
+        for label, c in (("f32", c32), ("bf16", c16)):
+            pots[label] = build_model(c, device="cuda")
+            pots[label].load_state_dict(state)
+        o32, _ = counted_eval(pots["f32"], gbatch, expected)
+        o16, launches = counted_eval(pots["bf16"], gbatch, expected)
+        if o16.energy.dtype != torch.float32 or o16.forces.dtype != torch.float32:
+            raise AssertionError(f"{mode} bf16: outputs in {o16.energy.dtype}, not float32")
+        cpu16 = detached(cpu_reference(c16, pots["bf16"], batch))
+        cpu32 = cpu_f32.get(mode) or detached(cpu_reference(c32, pots["f32"], batch))
+        o32, o16 = detached(o32), detached(o16)
+        row = {f: gap_check(f"{mode} {f}", o16[f], cpu16[f], o32[f], cpu32[f]) for f in FIELDS}
+        e_err = float(((o16["energy"] - o32["energy"]).abs()
+                       - BF16_ENERGY_TOL * o32["energy"].abs()).max())
+        print(f"  {mode} bf16 energies vs f32 (card): largest |dE| - 0.05 |E| = {e_err:.3e} "
+              f"eV (tol {BF16_ENERGY_TOL})")
+        if e_err > BF16_ENERGY_TOL:
+            raise AssertionError(f"{mode} bf16 energies beyond rtol/atol 0.05 of f32")
+        for label, p in pots.items():
+            row[f"eval_{label}"] = step_times(lambda: p(gbatch))
+        print(f"  {mode} eval: f32 {row['eval_f32']}, bf16 {row['eval_bf16']}")
+        row["launches"] = launches
+        out[mode] = row
+        del pots, o16, o32, cpu16
+    return out
+
+
+def step_times(step, reps: int = 20) -> dict:
+    """``step``'s median ms (CUDA events, ``reps`` after 3) and, from the
+    profiler, its device busy ms and CUDA kernels a step: the work itself,
+    which the host's speed does not move."""
+    step_ms, wall_ms = time_step(step, reps=reps, warmup=3)
+    prof = profile_step(step, step_ms, steps=2)
+    return {"step_ms": step_ms, "wall_ms": wall_ms,
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            "kernels_per_step": prof["kernel_launches_per_step"]}
+
+
+def peak_gb(step) -> dict:
+    """The peak memory of one call of ``step``: absolute, and above what was
+    allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_gb": peak / 1e9, "step_peak_gb": (peak - before) / 1e9}
+
+
+def peak_and_ms(trainer, card_train) -> dict:
+    """One train step's :func:`peak_gb` and :func:`step_times`."""
+    def step():
+        trainer.train_step(card_train)
+
+    return {**peak_gb(step), **step_times(step)}
+
+
+def student(cfg, device="cuda"):
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+
+    return build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+
+
+def check_bf16_train(cfg, host_train, card_train, cpu_f32_steps: dict) -> dict:
+    """The seed-0 student under bf16 in the factorized and the fused mode:
+    one step's loss and weight gradient against the same step on the CPU in
+    bf16 (the gap rule, against phase 6's f32 step on either side), the
+    launches of one train step, five steps that lower the loss and stay
+    finite, the step's ms and peak."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    out = {}
+    for mode in ("factorized", "fused"):
+        c32 = cfg.replace(threebody_mode=mode)
+        c16 = c32.replace(compute_dtype="bfloat16")
+        loss32, g32 = loss_and_grads(student(c32), card_train, c32)
+        pot = student(c16)
+        loss16, g16 = loss_and_grads(pot, card_train, c16)
+        cpu_pot = student(c16, "cpu")
+        t0 = time.perf_counter()
+        cpu_loss16, cpu_g16 = loss_and_grads(cpu_pot, host_train, c16)
+        print(f"  CPU bf16 loss and gradients: {time.perf_counter() - t0:.1f} s")
+        del cpu_pot
+        cpu_loss32, cpu_g32 = cpu_f32_steps[mode]
+        row = {"loss": gap_check(f"{mode} bf16 step-1 loss", loss16, cpu_loss16, loss32,
+                                 cpu_loss32),
+               "gradient": gap_check(f"{mode} bf16 weight gradient (all tensors)",
+                                     *map(grad_vector, (g16, cpu_g16, g32, cpu_g32)))}
+        trainer = Trainer(pot, c16)
+        expected = expected_launches(mode, cfg.num_blocks, True)
+        reset_launches()
+        losses = [float(trainer.train_step(card_train)["loss"])]
+        torch.cuda.synchronize()
+        row["launches"] = all_launches()
+        if row["launches"] != expected:
+            raise AssertionError(f"{mode} bf16 train step launches {row['launches']}, "
+                                 f"expected {expected}")
+        losses += [float(trainer.train_step(card_train)["loss"]) for _ in range(4)]
+        finite = all(bool(p.isfinite().all()) for p in pot.parameters())
+        print(f"  {mode} bf16 losses over 5 steps: {losses}")
+        if not (finite and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{mode} bf16 training: finite weights {finite}, losses {losses}")
+        row.update(losses=losses, **peak_and_ms(trainer, card_train))
+        print(f"  {mode} bf16 train step {row['step_ms']:.2f} ms (device busy "
+              f"{row['device_busy_ms']:.2f} ms, {row['kernels_per_step']:.0f} kernels), peak "
+              f"{row['peak_gb']:.2f} GB")
+        row["grads"] = (loss16, g16)
+        out[mode] = row
+    return out
+
+
+def check_remat(cfg, gbatch, card_train, bf16_step) -> dict:
+    """``remat_triplets`` in each mode: one step's loss and every weight
+    gradient against the step without it (``TRAIN_TOL``), the exact
+    launches of one eval and one train step with the recompute, and each
+    train step's peak and ms beside the step without remat. Then bf16 and
+    remat together (factorized) against the bf16 step."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    nb, out = cfg.num_blocks, {}
+    for mode in ("factorized", "fused", "gather"):
+        c = cfg.replace(threebody_mode=mode)
+        cr = c.replace(remat_triplets=True)
+        pot, pot_r = student(c), student(cr)
+        loss, grads = loss_and_grads(pot, card_train, c)
+        loss_r, grads_r = loss_and_grads(pot_r, card_train, cr)
+        check(f"{mode} remat step-1 loss vs without", loss_r.cpu(), loss.cpu(), MODEL_TOL)
+        worst = max((rel_err(grads_r[n], grads[n])[1], n) for n in grads)
+        print(f"  {mode} remat weight gradients vs without (card): worst {worst[1]} "
+              f"rel={worst[0]:.3e} over {len(grads)} tensors, tol={TRAIN_TOL:.0e}")
+        if worst[0] > TRAIN_TOL:
+            raise AssertionError(f"{mode} remat gradient {worst[1]}: {worst[0]:.3e}")
+        row = {"grad_rel_err": worst[0], "worst_tensor": worst[1],
+               "loss_rel_err": rel_err(loss_r.cpu(), loss.cpu())[1]}
+        _, row["launches_eval"] = counted_eval(pot_r, gbatch,
+                                               expected_launches(mode, nb, False, True))
+        # an eval keeps no graph of its backward pass, so there the
+        # recomputed stage is freed as soon as it is used
+        row["eval_peak"] = {label: peak_gb(lambda: p(gbatch))
+                            for label, p in (("plain", pot), ("remat", pot_r))}
+        print(f"  {mode} eval peak: {row['eval_peak']}")
+        trainers = {"plain": Trainer(pot, c), "remat": Trainer(pot_r, cr)}
+        expected = expected_launches(mode, nb, True, True)
+        reset_launches()
+        trainers["remat"].train_step(card_train)
+        torch.cuda.synchronize()
+        row["launches_train"] = all_launches()
+        print(f"  {mode} remat launches: eval {row['launches_eval']}, train step "
+              f"{row['launches_train']}")
+        if row["launches_train"] != expected:
+            raise AssertionError(f"{mode} remat train launches {row['launches_train']}, "
+                                 f"expected {expected}")
+        for label, trainer in trainers.items():
+            row[label] = peak_and_ms(trainer, card_train)
+        print(f"  {mode} train step with remat: {row['remat']}; without: {row['plain']}")
+        out[mode] = row
+        del pot, pot_r, trainers
+
+    # bf16 and remat together: the bf16 step again, the stage recomputed
+    c16r = cfg.replace(compute_dtype="bfloat16", remat_triplets=True)
+    loss16, g16 = bf16_step["grads"]
+    reset_launches()
+    loss_b, g_b = loss_and_grads(student(c16r), card_train, c16r)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    expected = expected_launches("factorized", nb, True, True)
+    if launches != expected:
+        raise AssertionError(f"bf16 + remat step launches {launches}, expected {expected}")
+    gap = bf16_step["gradient"]["gap"]
+    err = float((grad_vector(g_b) - grad_vector(g16)).abs().max())
+    loss_err = abs(float(loss_b) - float(loss16))
+    print(f"  bf16 + remat vs bf16 (factorized, card): loss {loss_err:.3e} (bf16 gap "
+          f"{bf16_step['loss']['gap']:.3e}), gradient {err:.3e} = {err / gap:.3e} of its gap "
+          f"(tol {BF16_GAP_FRACTION}); launches {launches}")
+    if not (err <= BF16_GAP_FRACTION * gap
+            and loss_err <= BF16_GAP_FRACTION * bf16_step["loss"]["gap"]):
+        raise AssertionError("bf16 + remat step differs from the bf16 step")
+    out["bf16_remat"] = {"loss_err": loss_err, "grad_err": err, "grad_frac_of_gap": err / gap}
+    return out
+
+
+def check_precision_remat(name, smi, state, batch, gbatch, cfg, host_train, card_train,
+                          cpu_f32: dict, cpu_f32_steps: dict) -> dict:
+    """Phase 12 (see the module docstring); returns the ``precision_remat``
+    line."""
+    info = {"card": name, "nvidia_smi": smi}
+    print("  -- bf16 eval (phase 4's weights, the bench batch)")
+    info["bf16_eval"] = check_bf16_eval(state, batch, gbatch, cfg, cpu_f32)
+    print("  -- bf16 train step (the seed-0 student, phase 6's teacher batch)")
+    info["bf16_train"] = check_bf16_train(cfg, host_train, card_train, cpu_f32_steps)
+    print("  -- remat train step")
+    info["remat"] = check_remat(cfg, gbatch, card_train, info["bf16_train"]["factorized"])
+    for row in info["bf16_train"].values():
+        del row["grads"]
+    return info
+
+
 def main() -> int:
     import os
     import tempfile
@@ -3038,17 +3337,19 @@ def main() -> int:
     print(f"  parameters: {n_params}")
     if n_params != N_PARAMS:
         raise AssertionError(f"{n_params} parameters, expected {N_PARAMS}")
-    out, launches = check_model(pot, batch, gbatch, cfg)
+    state0 = {k: v.detach().clone() for k, v in pot.state_dict().items()}
+    out, launches, cpu_f32 = check_model(pot, batch, gbatch, cfg)
 
     print("== 5. model, fused mode (same weights, same batch)")
-    pot_f, out_f, launches_f = check_fused_model(pot, out, batch, gbatch, cfg)
+    pot_f, out_f, launches_f, cpu_f32_fused = check_fused_model(pot, out, batch, gbatch, cfg)
+    cpu_f32 = {"factorized": cpu_f32, "fused": cpu_f32_fused}
     del out, out_f
 
     print("== 6. training (teacher labels, seed-0 student)")
     host_train, card_train = teacher_batch(cfg, batch, gbatch)
-    trainers, first_loss, train_launches = {}, {}, {}
+    trainers, first_loss, train_launches, cpu_steps = {}, {}, {}, {}
     for mode in ("factorized", "fused"):
-        trainers[mode], first_loss[mode], train_launches[mode] = check_training(
+        trainers[mode], first_loss[mode], train_launches[mode], cpu_steps[mode] = check_training(
             mode, cfg, host_train, card_train)
     check("step-1 loss fused vs factorized (card)", torch.tensor(first_loss["fused"]),
           torch.tensor(first_loss["factorized"]), MODE_TOL)
@@ -3100,11 +3401,25 @@ def main() -> int:
         par = check_parallel(name, smi, os.path.join(keep, "mlearn_Cu"))
         par["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"parallel": par}))
+
+    print("== 12. bf16 and remat")
+    t0 = time.perf_counter()
+    del trainers
+    prec = check_precision_remat(name, smi, state0, batch, gbatch, cfg, host_train, card_train,
+                                 cpu_f32, cpu_steps)
+    prec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"precision_remat": prec}))
+    print(f"  phase 12: {prec['phase_s']:.1f} s")
     for row in rows:
         row["launches_predict"] = next(r["launches"][row["name"]] for r in
                                        cli["predict"]["runs"].values() if r["launches"][row["name"]])
         row["launches_gp_rank"] = next(par["gp"][m]["launches"][row["name"]] for m in
                                        ("factorized", "fused") if par["gp"][m]["launches"][row["name"]])
+        # with remat_triplets: per mode whose step runs the kernel, (eval, train step)
+        remat = {m: prec["remat"][m] for m in ("factorized", "fused", "gather")}
+        row["launches_remat"] = {
+            m: [r["launches_eval"][row["name"]], r["launches_train"][row["name"]]]
+            for m, r in remat.items() if r["launches_train"][row["name"]]}
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

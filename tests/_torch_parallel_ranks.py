@@ -82,12 +82,13 @@ def exchange(plan: dict, x: np.ndarray, w: np.ndarray, v: np.ndarray) -> dict:
 
 
 def gp_eval(settings: dict, states: dict, cases: dict) -> dict:
-    """E/F/S of each case ``name -> (mode, stacked shards, weights)``
-    through ``GraphParallelPotential.apply`` (every shard's forces)."""
+    """E/F/S of each case ``name -> (mode, stacked shards, weights[,
+    settings of its own])`` through ``GraphParallelPotential.apply``
+    (every shard's forces)."""
     mesh = make_mesh(None, "gp", "cpu")
     out = {}
-    for name, (mode, sharded, weights) in cases.items():
-        _, pot = potential(settings, states[weights], mode)
+    for name, (mode, sharded, weights, *own) in cases.items():
+        _, pot = potential({**settings, **(own[0] if own else {})}, states[weights], mode)
         res = GraphParallelPotential(pot, mesh).apply(sharded)
         out[name] = dict(energy=res.energy.numpy(), forces=res.forces.numpy(),
                          stress=res.stress.numpy())

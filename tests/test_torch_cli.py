@@ -26,7 +26,7 @@ import pytest
 from torch_m3gnet_tpu.cli import train_mlearn as jax_mlearn
 from torch_m3gnet_tpu.cli import train_mpf as jax_mpf
 from torch_m3gnet_tpu.train import loop as jax_loop
-from torch_m3gnet_tpu_torch.cli import train_mlearn, train_mpf
+from torch_m3gnet_tpu_torch.cli import predict, train_mlearn, train_mpf
 from torch_m3gnet_tpu_torch.models import params_from_flax
 from torch_m3gnet_tpu_torch.train import loop, run
 
@@ -176,3 +176,31 @@ def test_mesh_raises(tmp_path):
     with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         train_mlearn.main(["--path", MLEARN, "--config", write_config(tmp_path, "m", 1),
                            "--root", str(tmp_path / "r"), "--device", "cpu", "--mesh", "2"])
+
+
+def test_bf16_config_trains_and_predicts(tmp_path, capsys):
+    """A config with ``compute_dtype: bfloat16`` trains one step (one epoch
+    of one batch) and predicts from its checkpoint on the CPU; the same
+    checkpoint under the float32 config predicts energies within 1 % and
+    not equal (the casts act)."""
+    text = SETTINGS.format(name="bf16", accumulate=1, extra="compute_dtype: bfloat16\n")
+    configs = {}
+    for dtype in ("bfloat16", "float32"):
+        configs[dtype] = tmp_path / f"{dtype}.yaml"
+        configs[dtype].write_text(text.replace("batch_size: 8", "batch_size: 64")
+                                  .replace("bfloat16", dtype))
+    root = tmp_path / "bf16"
+    train_mlearn.main(["--path", MLEARN, "--config", str(configs["bfloat16"]), "--max-epochs", "1",
+                       "--root", str(root), "--device", "cpu"])
+    test = json.loads(capsys.readouterr().out)["test"]
+    assert all(np.isfinite(v) for v in test.values())
+    assert json.loads((root / "checkpoints" / "last.meta.json").read_text())["step"] == 1
+    energies = {}
+    for dtype, cfg in configs.items():
+        predict.main(["--structures", f"{MLEARN}/test.json", "--format", "mlearn", "--config",
+                      str(cfg), "--checkpoint", str(root / "checkpoints" / "best"),
+                      "--device", "cpu"])
+        energies[dtype] = np.array([r["energy"] for r in json.loads(capsys.readouterr().out)])
+    assert np.isfinite(energies["bfloat16"]).all() and len(energies["bfloat16"]) == 12
+    np.testing.assert_allclose(energies["bfloat16"], energies["float32"], rtol=1e-2)
+    assert not np.array_equal(energies["bfloat16"], energies["float32"])

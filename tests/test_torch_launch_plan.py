@@ -48,27 +48,50 @@ def counted(monkeypatch):
     return counts
 
 
-@pytest.mark.parametrize("nb", [1, 3])
-@pytest.mark.parametrize("mode", ["factorized", "fused", "gather"])
-def test_launch_counts_match_chip_smoke(counted, mode, nb):
+def two_cells():
     rng = np.random.default_rng(0)
     base = Structure.from_frac_coords(
         np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], [29] * 4)
     structs = [Structure(base.lattice, base.cart_coords + 0.05 * rng.standard_normal((4, 3)),
                          base.atomic_numbers) for _ in range(2)]
     batch = pack_structures(structs, 5.0, 4.0, pad_multiple=64)
-    batch = batch.replace(energy=np.array([-12.0, -12.1], np.float32),
-                          forces=np.zeros((batch.num_nodes, 3), np.float32),
-                          stress=np.zeros((2, 6), np.float32))
-    cfg = M3GNetConfig(threebody_mode=mode, embedding_dim=8, num_blocks=nb)
+    return batch.replace(energy=np.array([-12.0, -12.1], np.float32),
+                         forces=np.zeros((batch.num_nodes, 3), np.float32),
+                         stress=np.zeros((2, 6), np.float32))
+
+
+def eval_and_train_launches(counted, cfg, batch):
+    """The kernel calls of one evaluation and of one train step."""
     pot = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    names = list(PLAIN)
     counted.clear()
     pot(batch)
-    assert {n: counted[n] for n in names} == chip_smoke.expected_launches(mode, nb, False)
+    ev = {n: counted[n] for n in PLAIN}
     counted.clear()
     Trainer(pot, cfg).train_step(batch)
-    assert {n: counted[n] for n in names} == chip_smoke.expected_launches(mode, nb, True)
+    return ev, {n: counted[n] for n in PLAIN}
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("mode", ["factorized", "fused", "gather"])
+def test_launch_counts_match_chip_smoke(counted, mode, nb):
+    cfg = M3GNetConfig(threebody_mode=mode, embedding_dim=8, num_blocks=nb)
+    ev, train = eval_and_train_launches(counted, cfg, two_cells())
+    assert ev == chip_smoke.expected_launches(mode, nb, False)
+    assert train == chip_smoke.expected_launches(mode, nb, True)
+
+
+@pytest.mark.parametrize("setting", ["bf16", "remat", "bf16+remat"])
+@pytest.mark.parametrize("mode", ["factorized", "fused", "gather"])
+def test_launch_counts_bf16_and_remat(counted, mode, setting):
+    """bf16 launches what float32 does; remat adds one forward of each
+    block's stage kernels per backward pass that reaches the stage (one in
+    an evaluation, two in a train step), as chip_smoke.py phase 12 asserts."""
+    remat = "remat" in setting
+    cfg = M3GNetConfig(threebody_mode=mode, embedding_dim=8, num_blocks=2, remat_triplets=remat,
+                       compute_dtype="bfloat16" if "bf16" in setting else "float32")
+    ev, train = eval_and_train_launches(counted, cfg, two_cells())
+    assert ev == chip_smoke.expected_launches(mode, 2, False, remat)
+    assert train == chip_smoke.expected_launches(mode, 2, True, remat)
 
 
 @pytest.fixture(scope="module")

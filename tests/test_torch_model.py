@@ -251,11 +251,21 @@ def test_auto_mode_resolves_to_factorized():
         build_model(M3GNetConfig(threebody_mode="pairwise"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(remat_triplets=True)],
-                         ids=["bf16", "remat"])
-def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(M3GNetConfig(**kw), device="cpu")
+@pytest.mark.parametrize("value, dtype", [("float32", None), (None, None),
+                                          ("bfloat16", torch.bfloat16)],
+                         ids=["float32", "none", "bfloat16"])
+def test_compute_dtype_resolves(value, dtype):
+    """``compute_dtype`` as the JAX package reads it: ``"float32"`` and
+    ``None`` compute in the weights' dtype, a float type's name in it."""
+    pot = build_model(M3GNetConfig(compute_dtype=value, remat_triplets=True, **SMALL),
+                      device="cpu")
+    assert pot.model.compute_dtype == dtype and pot.model.remat_triplets
+
+
+@pytest.mark.parametrize("value", ["int8", "bf16"])
+def test_unknown_compute_dtype_raises(value):
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        build_model(M3GNetConfig(compute_dtype=value), device="cpu")
 
 
 def test_seeded_weights_are_reproducible():

@@ -48,6 +48,7 @@ jax.config.update("jax_enable_x64", True)
 SETTINGS = dict(l_max=2, n_max=2, embedding_dim=8, num_blocks=2)
 RTOL, ATOL = 1e-8, 1e-12
 MODES = ("factorized", "fused", "gather")
+BF16_REMAT = dict(compute_dtype="bfloat16", remat_triplets=True)
 CU = ([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]], [29] * 4)
 
 
@@ -142,6 +143,10 @@ def runs():
                   for mode in ("factorized", "gather")})
     cases["reordered"] = ("gather", graph_shard.partition_graph(rod_g2, 4), "f64")
     cases["fused-f32"] = ("fused", graph_shard.partition_graph(g32, 4), "f32")
+    cases["factorized-bf16-remat"] = ("factorized", graph_shard.partition_graph(g32, 4), "f32",
+                                      BF16_REMAT)
+    cases["fused-remat"] = ("fused", graph_shard.partition_graph(g, 4), "f64",
+                            dict(remat_triplets=True))
     ex = exchange_inputs()
     with ThreadPoolExecutor(1) as pool:
         job = pool.submit(launch.run, "tests._torch_parallel_ranks:gp_job", 4, ex,
@@ -169,7 +174,8 @@ def runs():
         want["fused-f32"] = {f: np.asarray(getattr(out, f)) for f in ("energy", "forces", "stress")}
         ranks = job.result()
     got = {part: [r[part] for r in ranks] for part in ("exchange", "eval")}
-    return dict(got=got, want=want, n=g.num_nodes, state=states["f64"], g=g)
+    return dict(got=got, want=want, n=g.num_nodes, state=states["f64"], g=g, states=states,
+                g32=g32)
 
 
 def assert_efs(got, want, n):
@@ -206,17 +212,47 @@ def test_gp_efs_matches_jax(runs, case, ref):
     assert_efs(got[0][case], runs["want"][ref], runs["n"])
 
 
+def single_device(g, state, mode, dtype, **kw):
+    """The port's E/F/S of the unpartitioned graph ``g`` on one device."""
+    pot = build_model(M3GNetConfig(**SETTINGS, threebody_mode=mode, **kw), device="cpu").to(dtype)
+    pot.model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    out = pot(pad_batch(g, g.num_nodes, g.num_edges, g.num_triplets, 1))
+    return {f: getattr(out, f).detach().numpy() for f in ("energy", "forces", "stress")}
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_gp_matches_single_device(runs, mode):
     """Each mode's gp E/F/S against the port's own single-device potential
     on the unpartitioned graph, and against JAX's."""
-    g = runs["g"]
-    pot = build_model(M3GNetConfig(**SETTINGS, threebody_mode=mode), device="cpu").double()
-    pot.model.load_state_dict({k: torch.as_tensor(v) for k, v in runs["state"].items()})
-    out = pot(pad_batch(g, g.num_nodes, g.num_edges, g.num_triplets, 1))
-    single = {f: getattr(out, f).detach().numpy() for f in ("energy", "forces", "stress")}
+    single = single_device(runs["g"], runs["state"], mode, torch.float64)
     assert_efs(runs["got"]["eval"][0][mode], single, runs["n"])
     assert_efs(single, runs["want"]["single"], runs["n"])
+
+
+@pytest.mark.parametrize("case", ["factorized-bf16-remat", "fused-remat"])
+def test_gp_bf16_and_remat_match_single_device(runs, case):
+    """gp with ``remat_triplets`` (the recompute reruns the stage's halo
+    exchange in every backward pass, on every rank alike) and with bf16
+    (block 0 exchanges the bf16 node features) against the port's single
+    device on the unpartitioned graph with the same settings: f64 remat
+    at rtol 1e-8; bf16 + remat within 5 % of the single device's bf16-f32
+    gap per field (the shards sum in another order, which may flip a bf16
+    rounding), that gap non-zero."""
+    got = runs["got"]["eval"][0][case]
+    n = runs["n"]
+    if case == "fused-remat":
+        assert_efs(got, single_device(runs["g"], runs["state"], "fused", torch.float64,
+                                      remat_triplets=True), n)
+        return
+    want = single_device(runs["g32"], runs["states"]["f32"], "factorized", torch.float32,
+                         **BF16_REMAT)
+    f32 = single_device(runs["g32"], runs["states"]["f32"], "factorized", torch.float32)
+    for f in ("energy", "forces", "stress"):
+        rows = slice(0, n) if f == "forces" else slice(0, 1)
+        gap = np.abs(want[f][rows] - f32[f][rows]).max()
+        assert got[f].dtype == np.float32 and gap > 0
+        np.testing.assert_allclose(got[f][rows], want[f][rows], rtol=0, atol=0.05 * gap,
+                                   err_msg=f)
 
 
 def test_spatial_reorder_then_gp_matches_dense(runs):

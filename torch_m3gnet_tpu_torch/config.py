@@ -8,9 +8,8 @@ and ignored by this port: ``fused_factorized``, ``pallas_segment``,
 kept; of ``pallas_segment`` only the check of its value. The port always
 computes feature-major with full-f32 matmuls, and its sorted segment sums
 always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
-Two fields are not ported yet and raise ``NotImplementedError`` for
-anything but their defaults in ``build_model``: ``compute_dtype``
-(``"float32"`` only) and ``remat_triplets`` (``False`` only).
+``compute_dtype`` (``"float32"`` or ``"bfloat16"``) and ``remat_triplets``
+carry the JAX package's semantics (``models/m3gnet.py``'s docstring).
 ``num_devices > 1`` runs ``train.run.train_model`` data-parallel on that
 many ranks of the process group.
 """

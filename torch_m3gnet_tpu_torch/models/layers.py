@@ -44,12 +44,18 @@ class Embed(nn.Module):
             )
         )
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.embedding.index_select(0, idx)
+    def forward(self, idx: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The rows of ``idx``, in ``dtype`` if given: the table is cast
+        first, as Flax's ``nn.Embed(dtype=...)`` does, so the gradient is
+        summed by row in that dtype and then cast back."""
+        table = self.embedding if dtype is None else self.embedding.to(dtype)
+        return table.index_select(0, idx)
 
 
 class DenseFM(nn.Module):
-    """Feature-major Dense: (in_features, M) -> (features, M)."""
+    """Feature-major Dense: (in_features, M) -> (features, M), computed in
+    the promoted dtype of input and kernel, as Flax's ``promote_dtype``
+    (``dtype=None``): a bfloat16 input meets float32 weights in float32."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  generator: torch.Generator | None = None):
@@ -58,9 +64,10 @@ class DenseFM(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x_fm: torch.Tensor) -> torch.Tensor:
-        y = self.kernel.t() @ x_fm
+        dtype = torch.promote_types(x_fm.dtype, self.kernel.dtype)
+        y = self.kernel.to(dtype).t() @ x_fm.to(dtype)
         if self.bias is not None:
-            y = y + self.bias[:, None]
+            y = y + self.bias.to(dtype)[:, None]
         return y
 
 

@@ -27,6 +27,24 @@ strain stress by ``edge_graph``.
   weights);
 - :func:`build_model` assembles a potential from a config on a device.
 
+Two settings of the JAX model carry over with its semantics:
+
+- ``compute_dtype`` (``"bfloat16"``): rounding at fixed points, f32 (the
+  geometry dtype) arithmetic everywhere else. The atom embedding, the
+  radial basis and the three-body stage's per-edge factors are rounded to
+  it; every dense layer promotes its input to the weights' dtype, so no
+  matmul runs in it; the kernels take their operands in the geometry
+  dtype, cast before their Functions, so the cast's backward rounds their
+  cotangents as JAX's convert VJP does; readout, energies, forces and
+  stress stay in the geometry dtype.
+- ``remat_triplets``: each block's three-body stage (the closure that maps
+  the gate to the stage's output) runs under ``torch.utils.checkpoint``
+  (non-reentrant), which keeps none of its intermediates and recomputes it
+  in every backward pass that reaches it: once in an evaluation, twice in
+  a train step (the force loss differentiates the recomputed stage again).
+  On a shard of a partitioned graph the recompute reruns the stage's halo
+  exchange, in the same order on every rank.
+
 Graph parallelism (``parallel.graph_shard``) runs this same module on each
 shard of one partitioned graph, with ``group`` the process group of the
 shards: every read of node rows through a destination id (positions for
@@ -49,6 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from torch_m3gnet_tpu_torch.data.graph import GraphBatch, to_torch
 from torch_m3gnet_tpu_torch.models.layers import DenseFM, Embed, GatedMLPFM
@@ -134,12 +153,17 @@ class M3GNet(nn.Module):
         energy_scale: float = 1.0,
         length_scale: float = 1.0,
         threebody_mode: str = "factorized",
+        compute_dtype: torch.dtype | None = None,
+        remat_triplets: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         if threebody_mode not in THREEBODY_MODES:
             raise ValueError(f"unknown threebody_mode: {threebody_mode}")
         self.threebody_mode = threebody_mode
+        # None: compute in the geometry dtype (the weights' dtype).
+        self.compute_dtype = compute_dtype
+        self.remat_triplets = remat_triplets
         self.cutoff = cutoff
         self.threebody_cutoff = threebody_cutoff
         self.l_max = l_max
@@ -190,6 +214,7 @@ class M3GNet(nn.Module):
         On a shard of a partitioned graph (``group`` given) both are the
         shard's own share: the energy of its nodes."""
         dtype = r_vec_fm.dtype
+        cdtype = self.compute_dtype or dtype
         n_max = self.n_max
         rc = self.cutoff / self.length_scale
         num_nodes = graph.num_nodes
@@ -204,15 +229,21 @@ class M3GNet(nn.Module):
         sq_safe = torch.where(graph.edge_mask, sq, torch.ones_like(sq))
         dist = torch.where(graph.edge_mask, torch.sqrt(sq_safe), torch.full_like(sq, rc))
 
-        # --- featurization
-        v_fm = self.atom_embed(graph.atom_types).t()  # (D, N)
-        ew_fm = smooth_radial_basis_fm(dist, n_max, rc)  # (n, E)
+        # --- featurization (in the compute dtype; each dense layer promotes)
+        v_fm = self.atom_embed(graph.atom_types, cdtype).t()  # (D, N)
+        ew_fm = smooth_radial_basis_fm(dist, n_max, rc).to(cdtype)  # (n, E)
         e_fm = F.silu(self.edge_init(ew_fm))  # (D, E)
 
         if self.threebody_mode == "factorized":
-            triplet_aggregate = self._factorized_stage(graph, r_fm, dist, group)
+            triplet_aggregate = self._factorized_stage(graph, r_fm, dist, cdtype, group)
         else:
-            triplet_aggregate = self._triplet_stage(graph, r_fm, dist, group)
+            triplet_aggregate = self._triplet_stage(graph, r_fm, dist, cdtype, group)
+        if self.remat_triplets:
+            stage = triplet_aggregate
+
+            def triplet_aggregate(gate_fm):
+                return checkpoint(stage, gate_fm, use_reentrant=False,
+                                  preserve_rng_state=False)
 
         # --- interaction blocks
         for b in range(self.num_blocks):
@@ -232,18 +263,24 @@ class M3GNet(nn.Module):
             v_fm = v_fm + sorted_segment_sum_fm(node_msg * edge_mask, src, num_nodes,
                                                 graph.edge_src_offsets)
 
-        # --- readout
-        atomic = self.readout(v_fm)[0]  # (N,)
+        # --- readout, in the geometry dtype
+        atomic = self.readout(v_fm)[0].to(dtype)  # (N,)
         elem = self.elemental_energies.to(dtype).index_select(0, graph.atom_types)
         scaled_atomic = (elem / self.energy_scale + atomic) * node_mask
         scaled_total = segment_sum(scaled_atomic, graph.node_graph, graph.num_graphs)
         total = self.energy_scale * scaled_total * graph.graph_mask.to(dtype)
         return total, self.energy_scale * scaled_atomic
 
-    def _factorized_stage(self, graph: GraphBatch, r_fm, dist, group=None):
+    def _factorized_stage(self, graph: GraphBatch, r_fm, dist, cdtype, group=None):
         """The factorized three-body stage: gate (LN, N) -> (LN, E), from
         per-edge factors only (the j = k diagonal that the triplet
-        enumeration excludes is subtracted analytically, P_l(1) = 1)."""
+        enumeration excludes is subtracted analytically, P_l(1) = 1).
+
+        Rounding points of JAX's fused-kernel path (``_forward_fm``): the
+        per-edge factors and the gathered gate in ``cdtype``, their
+        product ``g`` formed there; Q and R1 take ``sh`` and ``g`` in the
+        geometry dtype and sum in it."""
+        dtype = r_fm.dtype
         l_max, n_max = self.l_max, self.n_max
         ln, num_edges = l_max * n_max, graph.num_edges
         rc = self.cutoff / self.length_scale
@@ -253,25 +290,33 @@ class M3GNet(nn.Module):
         sh_fm = real_racah_harmonics_fm(u_fm, l_max)  # (M, E)
         chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max)  # (l, n, E)
         fc_e = cutoff_poly(dist, rc3) * graph.edge_mask.to(dist.dtype)  # zero on padded edges
-        chifc = (chi_fm * fc_e).reshape(ln, num_edges)
+        chifc = (chi_fm * fc_e).reshape(ln, num_edges).to(cdtype)
         fcn = torch.stack([c * fc_e for c in self.sph_norm])  # (l, E)
-        fcn = fcn[:, None, :].expand(l_max, n_max, num_edges).reshape(ln, num_edges)
+        fcn = fcn[:, None, :].expand(l_max, n_max, num_edges).reshape(ln, num_edges).to(cdtype)
+        sh_fm = sh_fm.to(cdtype)
 
         def triplet_aggregate(gate_fm):
             # A padded edge has gm = 0 (fc_e carries the edge mask), so it
             # adds nothing to A and its own output is scaled by fcn = 0.
-            g = chifc * take_dst_fm(gate_fm, graph, dst, group)  # (ln, E)
-            a = q_scatter(sh_fm, g, src, graph.num_nodes, l_max, n_max)  # (M*n, N)
-            proj = r1_gather(a, sh_fm, src, l_max, n_max)  # (ln, E)
-            return fcn * (proj - g)
+            g = chifc * take_dst_fm(gate_fm, graph, dst, group).to(cdtype)  # (ln, E)
+            # One cast per kernel operand, as each JAX wrapper casts its own.
+            a = q_scatter(sh_fm.to(dtype), g.to(dtype), src, graph.num_nodes,
+                          l_max, n_max)  # (M*n, N)
+            proj = r1_gather(a, sh_fm.to(dtype), src, l_max, n_max)  # (ln, E)
+            return fcn * (proj.to(cdtype) - g)
 
         return triplet_aggregate
 
-    def _triplet_stage(self, graph: GraphBatch, r_fm, dist, group=None):
+    def _triplet_stage(self, graph: GraphBatch, r_fm, dist, cdtype, group=None):
         """The per-triplet three-body stage (fused or gather): gate (LN, N)
         -> (LN, E) with out[:, e] = sum_{t: e1[t]=e} basis[:, t] *
         gate[:, k(t)], basis (LN, T) = chi_ln(r_ik) c_l P_l(cos jik)
-        fc(r_ij) fc(r_ik), zeroed on padded triplets."""
+        fc(r_ij) fc(r_ik), zeroed on padded triplets.
+
+        Rounding points of JAX's ``_forward_em``: the basis is rounded to
+        ``cdtype``; the gate and the sum stay in the geometry dtype (the
+        fused kernel takes both in it; in gather mode the product
+        promotes); the fused mode rounds its output to ``cdtype``."""
         l_max, n_max = self.l_max, self.n_max
         num_edges = graph.num_edges
         rc = self.cutoff / self.length_scale
@@ -305,19 +350,21 @@ class M3GNet(nn.Module):
         # it is what zeroes their gradient.
         basis_fm = (chi * sph[:, None, :] * fc).reshape(l_max * n_max, -1)
         basis_fm = basis_fm * graph.triplet_mask.to(basis_fm.dtype)
+        basis_c = basis_fm.to(cdtype)
 
         if fused:
             # gate pre-gathered node -> edge (E-scale); the kernel's T-scale
             # reads of it by e2 are then window-local. The e2 order goes with
             # it, for the backward kernel's sum by e2.
             return lambda gate_fm: fused_triplet_gate_sum(
-                basis_fm, take_dst_fm(gate_fm, graph, dst, group), e1, e2, num_edges, e2_order
-            )
+                basis_c.to(r_fm.dtype), take_dst_fm(gate_fm, graph, dst, group), e1, e2,
+                num_edges, e2_order
+            ).to(cdtype)
         node_k = graph.triplet_node_k
         if node_k is None:
             node_k = dst.index_select(0, e2)
         return lambda gate_fm: sorted_segment_sum_fm(
-            basis_fm * take_dst_fm(gate_fm, graph, node_k, group), e1, num_edges,
+            basis_c * take_dst_fm(gate_fm, graph, node_k, group), e1, num_edges,
             graph.triplet_e1_offsets
         )
 
@@ -427,8 +474,10 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
     Weights are drawn on the CPU from ``generator`` (Flax's initialisers:
     lecun-normal kernels, zero biases) and then moved, so one seed gives the
     same weights on every device, and in every three-body mode (the modes
-    share one parameter tree). The model computes in f32 or f64 on one
-    device.
+    share one parameter tree). The model's weights and geometry are f32 (or
+    f64 after ``.double()``); ``compute_dtype`` (``"float32"`` or ``None``:
+    the weights' dtype; ``"bfloat16"``: see the module docstring) and
+    ``remat_triplets`` are the JAX package's.
 
     The three-body mode resolves as the JAX package's ``build_model`` does:
     ``threebody_mode`` wins when set; under ``"auto"`` the legacy knob
@@ -455,16 +504,11 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         raise ValueError("layout='fm' requires threebody_mode='factorized'")
     if config.pallas_segment not in PALLAS_SEGMENT:
         raise ValueError(f"unknown pallas_segment: {config.pallas_segment!r}")
+    compute_dtype = None
     if config.compute_dtype not in ("float32", None):
-        raise NotImplementedError(
-            f"compute_dtype={config.compute_dtype!r} comes with a later slice "
-            "of the port; this one computes in float32 (or float64)"
-        )
-    if config.remat_triplets:
-        raise NotImplementedError(
-            "remat_triplets=True (rematerialising the three-body stage in the "
-            "backward pass) comes with a later slice of the port"
-        )
+        compute_dtype = getattr(torch, str(config.compute_dtype), None)
+        if not (isinstance(compute_dtype, torch.dtype) and compute_dtype.is_floating_point):
+            raise ValueError(f"unknown compute_dtype: {config.compute_dtype!r}")
     device = resolve_device(device)
     if device.type == "cuda":
         # Full-f32 matmuls, as the reference semantics need: no TF32.
@@ -482,6 +526,8 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         energy_scale=energy_scale,
         length_scale=length_scale,
         threebody_mode=mode,
+        compute_dtype=compute_dtype,
+        remat_triplets=bool(config.remat_triplets),
         generator=generator,
     )
     return M3GNetPotential(model, stress_mode=stress_mode).to(device)

@@ -38,7 +38,14 @@ gradient of the loss is the MEAN over ranks of the local gradients
 (``parallel.graph_shard`` reduces them so).
 
 The ranks' collectives must run in one order on every rank: every rank
-runs the same program on its shard, forward and backward.
+runs the same program on its shard, forward and backward (also where
+``remat_triplets`` reruns a stage's exchange in the backward pass).
+
+Rows move in their own dtype: under ``compute_dtype="bfloat16"`` block 0
+exchanges the bf16 node features, as JAX's ``gather_nodes_fm(v_fm)``
+does. gloo (which the CPU tests run) and NCCL both take bf16 in
+``all_to_all_single``, ``all_gather`` and ``all_reduce``, so no f32 detour
+is needed.
 """
 
 from __future__ import annotations
