@@ -149,7 +149,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    (the CLI joins their process group; torchrun starts it in
    ``tests/test_torch_parallel_dp.py``) for one epoch on phase 9's mlearn
    set: both ranks print the same test metrics, rank 0 alone logs one row,
-   and its checkpoint loads and evaluates. Prints
+   and its checkpoint loads and evaluates. Then one NCCL rank on
+   ``cuda:0`` (``launch.run(..., 1, backend="nccl")``, the part of the
+   NCCL path one card can run): the card bound before its process group
+   started (``device_id``), ``broadcast_parameters`` over NCCL, and one
+   ``DataParallel`` step bitwise equal to the ``Trainer`` step on the same
+   batch (``nccl_one_rank``). ``multicard_smoke.py`` runs the NCCL path on
+   several cards. Prints
    the ``{"parallel": ...}`` line (gp eval ms per mode against one
    device's, the gp train step, the exchange per call and its rows, the dp
    step against one rank's, and the dp streaming producer's host ms per
@@ -2646,33 +2652,42 @@ GP_REPS, GP_JITTER, GP_SEED = 10, 0.05, 3
 DP_PER_RANK, DP_TAIL = 4, 3
 
 
-def gp_cell():
-    """The gp cell, labelled by the teacher on the card (its targets)."""
+def gp_cell(reps: int = GP_REPS, seed: int = GP_SEED, device: str = "cuda", cfg=None):
+    """The gp cell (``reps`` fcc cells a side, jitter from ``seed``),
+    labelled by the teacher (``cfg``'s architecture, default the default
+    model's) on ``device`` (its targets)."""
     from torch_m3gnet_tpu_torch.config import M3GNetConfig
     from torch_m3gnet_tpu_torch.data import Structure
 
-    rng = np.random.default_rng(GP_SEED)
+    rng = np.random.default_rng(seed)
     base = Structure.from_frac_coords(
         np.eye(3) * 3.62, [[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
-        [29] * 4).supercell((GP_REPS,) * 3)
+        [29] * 4).supercell((reps,) * 3)
     cell = Structure(base.lattice, base.cart_coords + GP_JITTER * rng.standard_normal(
         base.cart_coords.shape), base.atomic_numbers)
-    label_structures(M3GNetConfig(), [cell], "cuda")
+    label_structures(cfg or M3GNetConfig(), [cell], device)
     return cell
+
+
+def synchronize() -> None:
+    """Wait for the card, where this process uses one (a CPU rehearsal of
+    the rank code has none)."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def rank_times(step, reps: int = 5) -> float:
     """Median host ms of ``step()`` to its synchronise, after one warm-up
     (every rank calls it: the step's collectives pair the ranks up)."""
-    import torch
-
     step()
-    torch.cuda.synchronize()
+    synchronize()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         step()
-        torch.cuda.synchronize()
+        synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -2764,7 +2779,9 @@ def gp_rank(inputs: dict) -> dict:
 
 
 def dp_rank(inputs: dict) -> dict:
-    """Phase 11's dp checks on one rank (see ``check_parallel``)."""
+    """Phase 11's dp checks on one rank (see ``check_parallel``), on
+    ``inputs["device"]`` (default ``PAR_DEVICE``, the card both ranks
+    share)."""
     import torch
     import torch.distributed as dist
 
@@ -2777,19 +2794,19 @@ def dp_rank(inputs: dict) -> dict:
             self.grads = [g.detach().clone() for g in grads]
             super().apply_gradients(grads)
 
-    rank = dist.get_rank()
-    mesh = make_mesh(None, "dp", "cuda", device=PAR_DEVICE)
+    rank, device = dist.get_rank(), inputs.get("device", PAR_DEVICE)
+    mesh = make_mesh(None, "dp", torch.device(device).type, device=device)
     cfg = inputs["config"]
     out = {"rank": rank}
     for label, stack in inputs["stacks"].items():
-        pot = build_model(cfg, device=PAR_DEVICE, generator=torch.Generator().manual_seed(0))
+        pot = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
         dp = Recording(pot, cfg, mesh)
         before = [p.detach().clone() for p in dp.params]
         dp.train_step(stack, cfg.learning_rate)
         after = [p.detach().clone() for p in dp.params]
         row = {}
         if rank == 0:  # the same weighted gradient on one rank, row by row
-            ref = build_model(cfg, device=PAR_DEVICE)
+            ref = build_model(cfg, device=device)
             with torch.no_grad():
                 for p, b in zip(ref.parameters(), before):
                     p.copy_(b)
@@ -2810,7 +2827,7 @@ def dp_rank(inputs: dict) -> dict:
     stack = inputs["stacks"]["full"]
     out["dp_step_ms"] = rank_times(lambda: dp.train_step(stack))
     if rank == 0:
-        one = Trainer(build_model(cfg, device=PAR_DEVICE), cfg)
+        one = Trainer(build_model(cfg, device=device), cfg)
         out["one_rank_step_ms"] = rank_times(lambda: one.train_step(stack.row(0)))
     dist.barrier()
     return out
@@ -2828,7 +2845,7 @@ def cli_rank(inputs: dict) -> dict:
     return {"test": test, "wall_s": time.perf_counter() - t0}
 
 
-def stream_producer_ms(structures, cfg, cache_dir: str) -> dict:
+def stream_producer_ms(structures, cfg, cache_dir: str, ranks: int = PAR_RANKS) -> dict:
     """Host ms per batch of the dp streaming producers, on the host alone:
     a rank's stream as ``train_model`` runs it (every shard read and
     decoded, the rank's row kept, so that the row is row ``rank`` of the
@@ -2842,14 +2859,15 @@ def stream_producer_ms(structures, cfg, cache_dir: str) -> dict:
                                shard_size=WF_SHARD)
     bucket = ds.bucket(DP_PER_RANK, cfg.pad_multiple)
     producers = {
-        "dp_rank_full_stream": lambda: stream_sharded_batches(ds, DP_PER_RANK, PAR_RANKS,
+        "dp_rank_full_stream": lambda: stream_sharded_batches(ds, DP_PER_RANK, ranks,
                                                               bucket, rank=0),
-        "one_device": lambda: stream_batches(ds, DP_PER_RANK * PAR_RANKS, ds.bucket(
-            DP_PER_RANK * PAR_RANKS, cfg.pad_multiple)),
+        "one_device": lambda: stream_batches(ds, DP_PER_RANK * ranks, ds.bucket(
+            DP_PER_RANK * ranks, cfg.pad_multiple)),
         "dp_rank_shard_stride": lambda: stream_sharded_batches(
-            HostShardView(ds, 0, PAR_RANKS), DP_PER_RANK, 1, bucket, rank=0),
+            HostShardView(ds, 0, ranks), DP_PER_RANK, 1, bucket, rank=0),
     }
-    out = {"graphs": len(ds), "shards": ds.n_shards, "per_rank_batch": DP_PER_RANK}
+    out = {"graphs": len(ds), "shards": ds.n_shards, "per_rank_batch": DP_PER_RANK,
+           "ranks": ranks}
     for label, make in producers.items():
         times = []
         for _ in range(3):
@@ -2870,7 +2888,7 @@ def parallel_rank(inputs: dict) -> dict:
     return out
 
 
-def check_mesh_cli(ranks, inputs: dict) -> dict:
+def check_mesh_cli(ranks, inputs: dict, n_ranks: int = PAR_RANKS) -> dict:
     """The CLI's run (``cli_rank``): both ranks printed the same test
     metrics, rank 0 alone logged (one row for one epoch), and its ``last``
     checkpoint loads into the default model and evaluates a batch."""
@@ -2884,7 +2902,7 @@ def check_mesh_cli(ranks, inputs: dict) -> dict:
 
     printed = [r["cli"]["test"] for r in ranks]
     rows = open(os.path.join(inputs["root"], "logs", "metrics.jsonl")).read().splitlines()
-    print(f"  train_mlearn --mesh {PAR_RANKS}: {ranks[0]['cli']['wall_s']:.1f} s; test loss per "
+    print(f"  train_mlearn --mesh {n_ranks}: {ranks[0]['cli']['wall_s']:.1f} s; test loss per "
           f"rank {[m['loss'] for m in printed]}; metrics.jsonl rows {len(rows)}")
     if any(m != printed[0] for m in printed) or len(rows) != 1:
         raise AssertionError(f"ranks printed {printed}; metrics.jsonl holds {len(rows)} rows")
@@ -2899,6 +2917,80 @@ def check_mesh_cli(ranks, inputs: dict) -> dict:
         raise AssertionError("the rank-0 checkpoint evaluates to non-finite energies")
     return {"wall_s": ranks[0]["cli"]["wall_s"], "test": printed[0], "ranks_printed_equal": True,
             "metrics_rows": len(rows), "checkpoint_loads": True}
+
+
+def check_dp(dp: dict) -> dict:
+    """``dp_rank``'s rank 0: each step's gradient and update against the
+    weighted gradient on one rank, the unweighted-mean control failing the
+    tail's check; returns its part of the ``parallel`` line."""
+    for label in ("full", "tail"):
+        row = dp[label]
+        print(f"  dp {label} (real graphs per rank {row['real_graphs_per_rank']}): gradient rel "
+              f"{row['grad_rel_err']:.3e} tol {TRAIN_TOL:.0e}, update {row['update_err_lr']:.3e} "
+              f"lr tol {UPDATE_TOL:.0e}; control (unweighted mean) gradient rel "
+              f"{row['control_unweighted_grad_rel_err']:.3e}")
+        if not (row["grad_rel_err"] <= TRAIN_TOL and row["update_err_lr"] <= UPDATE_TOL):
+            raise AssertionError(f"dp {label} step: {row}")
+    if dp["tail"]["control_unweighted_grad_rel_err"] <= TRAIN_TOL:
+        raise AssertionError("the unweighted-mean control passed the dp tail check")
+    return {k: dp[k] for k in ("full", "tail", "dp_step_ms", "one_rank_step_ms")}
+
+
+def nccl_one_rank(inputs: dict) -> dict:
+    """A one-rank NCCL job on ``cuda:0`` (``launch.run(..., backend="nccl")``):
+    the card bound before the process group started, ``broadcast_parameters``
+    over NCCL, and one ``DataParallel`` step against the ``Trainer`` step on
+    the same batch from the same weights, deterministic algorithms on (the
+    weight w / w_total is 1 and a one-rank all-reduce copies: bitwise
+    equal)."""
+    import torch
+    import torch.distributed as dist
+
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.parallel import DataParallel, make_mesh
+    from torch_m3gnet_tpu_torch.parallel.dp import broadcast_parameters
+    from torch_m3gnet_tpu_torch.train import Trainer
+
+    cfg, batch = inputs["config"], inputs["batch"]
+    out = {"backend": dist.get_backend(),
+           "bound_device": str(getattr(dist.group.WORLD, "bound_device_id", None)),
+           "current_device": torch.cuda.current_device()}
+    mesh = make_mesh(None, "dp", "cuda")
+    weights = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label in ("dp", "trainer"):
+            pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+            if label == "dp":
+                t0 = time.perf_counter()
+                broadcast_parameters(pot)
+                torch.cuda.synchronize()
+                out["broadcast_ms"] = (time.perf_counter() - t0) * 1e3
+                DataParallel(pot, cfg, mesh).train_step(batch)
+            else:
+                Trainer(pot, cfg).train_step(batch)
+            weights[label] = [p.detach().clone() for p in pot.parameters()]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out["bitwise_equal"] = all(torch.equal(a, b) for a, b in zip(*weights.values()))
+    out["max_abs_diff"] = max(float((a - b).abs().max()) for a, b in zip(*weights.values()))
+    return out
+
+
+def check_nccl_one_rank(cfg, batch) -> dict:
+    """Run :func:`nccl_one_rank` and hold it: bound to ``cuda:0``, bitwise
+    equal to the ``Trainer`` step."""
+    from torch_m3gnet_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    (out,) = launch.run("chip_smoke:nccl_one_rank", 1, {"config": cfg, "batch": batch},
+                        backend="nccl", timeout_s=PAR_TIMEOUT_S)
+    out["job_s"] = time.time() - t0
+    print(f"  one-rank NCCL job: {out}")
+    if not (out["backend"] == "nccl" and out["bound_device"] == "cuda:0"
+            and out["current_device"] == 0 and out["bitwise_equal"]):
+        raise AssertionError(f"one-rank NCCL job: {out}")
+    return out
 
 
 def check_parallel(name, smi, mlearn: str) -> dict:
@@ -2956,6 +3048,7 @@ def check_parallel(name, smi, mlearn: str) -> dict:
     finally:
         shutil.rmtree(tmp)
     gp, dp = ranks[0]["gp"], ranks[0]["dp"]
+    info["nccl_one_rank"] = check_nccl_one_rank(cfg, stacks["full"].row(0))
     info["gp"] = {}
     for mode in ("factorized", "fused"):
         for r in ranks:
@@ -2982,17 +3075,7 @@ def check_parallel(name, smi, mlearn: str) -> dict:
             and all(r["gp"]["train"]["weights_bitwise_equal_across_ranks"] for r in ranks)):
         raise AssertionError(f"gp train step: {train}")
     info["gp_train"] = train
-    for label in ("full", "tail"):
-        row = dp[label]
-        print(f"  dp {label} (real graphs per rank {row['real_graphs_per_rank']}): gradient rel "
-              f"{row['grad_rel_err']:.3e} tol {TRAIN_TOL:.0e}, update {row['update_err_lr']:.3e} "
-              f"lr tol {UPDATE_TOL:.0e}; control (unweighted mean) gradient rel "
-              f"{row['control_unweighted_grad_rel_err']:.3e}")
-        if not (row["grad_rel_err"] <= TRAIN_TOL and row["update_err_lr"] <= UPDATE_TOL):
-            raise AssertionError(f"dp {label} step: {row}")
-    if dp["tail"]["control_unweighted_grad_rel_err"] <= TRAIN_TOL:
-        raise AssertionError("the unweighted-mean control passed the dp tail check")
-    info["dp"] = {k: dp[k] for k in ("full", "tail", "dp_step_ms", "one_rank_step_ms")}
+    info["dp"] = check_dp(dp)
     print(f"  times ({name} | {smi}; {info['note']}): gp eval ms "
           f"{ {m: round(info['gp'][m]['gp_eval_ms'], 2) for m in info['gp']} } vs one device "
           f"{ {m: round(info['gp'][m]['single_eval_ms'], 2) for m in info['gp']} }; exchange "

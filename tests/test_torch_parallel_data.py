@@ -14,6 +14,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from torch_m3gnet_tpu.data import streaming as jax_streaming
 from torch_m3gnet_tpu.data.dataset import BucketSpec as JaxBucketSpec
@@ -238,12 +239,16 @@ def test_make_mesh_needs_a_process_group():
 
 def test_initialize_reads_the_jax_variables(monkeypatch):
     """``initialize`` from JAX's COORDINATOR_ADDRESS / NUM_PROCESSES /
-    PROCESS_ID (gloo on the CPU, NCCL on the card unless asked), and
-    raises without a world size."""
+    PROCESS_ID (gloo on the CPU, NCCL on the card unless asked, its card
+    bound first: ``cuda:rank`` without LOCAL_RANK), and raises without a
+    world size."""
     calls = []
     monkeypatch.setattr(distributed.dist, "init_process_group",
                         lambda backend, **kw: calls.append((backend, kw)))
-    for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "WORLD_SIZE", "RANK"):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.append(("set_device", d)))
+    for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match="world size"):
         distributed.initialize()
@@ -252,8 +257,11 @@ def test_initialize_reads_the_jax_variables(monkeypatch):
     monkeypatch.setenv("PROCESS_ID", "1")
     distributed.initialize(platform="cpu")
     distributed.initialize()
+    card = torch.device("cuda", 1)
     assert calls == [("gloo", dict(init_method="tcp://localhost:1234", world_size=2, rank=1)),
-                     ("nccl", dict(init_method="tcp://localhost:1234", world_size=2, rank=1))]
+                     ("set_device", card),
+                     ("nccl", dict(init_method="tcp://localhost:1234", world_size=2, rank=1,
+                                   device_id=card))]
 
 
 def test_launch_reports_the_failing_rank():

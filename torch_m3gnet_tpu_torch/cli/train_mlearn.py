@@ -61,7 +61,8 @@ def config_from_args(args) -> M3GNetConfig:
                              f"start it with torchrun --nproc-per-node {config.num_devices}")
         from torch_m3gnet_tpu_torch.parallel.distributed import initialize
 
-        initialize(backend=args.backend, platform=torch.device(args.device).type)
+        initialize(backend=args.backend, platform=torch.device(args.device).type,
+                   device=args.device)
     os.makedirs(config.root, exist_ok=True)
     return config
 

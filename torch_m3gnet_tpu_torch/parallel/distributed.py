@@ -15,7 +15,7 @@ from typing import Optional
 import torch.distributed as dist
 
 from torch_m3gnet_tpu_torch.data.graph import GraphBatch
-from torch_m3gnet_tpu_torch.parallel.mesh import make_mesh
+from torch_m3gnet_tpu_torch.parallel.mesh import bind_device, make_mesh
 
 
 def initialize(
@@ -24,6 +24,7 @@ def initialize(
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
     platform: Optional[str] = None,
+    device=None,
 ) -> None:
     """``torch.distributed.init_process_group`` from the arguments, else
     from the JAX package's variables ``COORDINATOR_ADDRESS`` (``host:port``
@@ -33,6 +34,12 @@ def initialize(
     ``backend`` defaults to NCCL for ``platform`` ``"cuda"`` (the default)
     and gloo for ``"cpu"``; the caller picks any other. A failing backend
     raises: there is no fallback to another one.
+
+    Under NCCL the rank's card is bound first and passed as ``device_id``:
+    ``device`` where it names one for every rank (``"cuda:0"``), else
+    ``cuda:LOCAL_RANK`` (``LOCAL_RANK`` defaults to the rank). So no
+    collective, a barrier included, runs on another card. gloo binds
+    nothing.
     """
     env = os.environ
     addr = coordinator_address or env.get("COORDINATOR_ADDRESS")
@@ -42,8 +49,11 @@ def initialize(
         raise RuntimeError("initialize needs the world size and this process's rank: pass "
                            "them, set NUM_PROCESSES and PROCESS_ID, or run under torchrun")
     backend = backend or ("gloo" if platform == "cpu" else "nccl")
+    bound = {}
+    if backend == "nccl":
+        bound["device_id"] = bind_device(device, int(env.get("LOCAL_RANK", rank)))
     dist.init_process_group(backend, init_method=f"tcp://{addr}" if addr else "env://",
-                            world_size=int(world), rank=int(rank))
+                            world_size=int(world), rank=int(rank), **bound)
 
 
 def global_mesh(axis_name: str = "dp", platform: Optional[str] = None, device=None):

@@ -3,7 +3,8 @@
 Each rank is a fresh interpreter (``multiprocessing``'s ``spawn``) that
 joins one process group through a ``FileStore`` in a temporary directory
 (no port to find), with one CPU thread, runs the named function and
-writes what it returns for the caller. The caller gets every rank's
+writes what it returns for the caller. Under NCCL rank ``r`` is bound to
+``cuda:r`` before its process group starts. The caller gets every rank's
 return value, or an error naming the rank that failed (with its
 traceback) or the ranks still running at the job's timeout; every rank is
 stopped either way.
@@ -39,9 +40,14 @@ def _rank_main(target: str, rank: int, world: int, store: str, backend: str,
 
     torch.set_num_threads(1)
     try:
+        bound = {}
+        if backend == "nccl":  # the rank's card, bound before any collective
+            from torch_m3gnet_tpu_torch.parallel.mesh import bind_device
+
+            bound["device_id"] = bind_device(None, rank)
         dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
                                 world_size=world,
-                                timeout=datetime.timedelta(seconds=timeout_s))
+                                timeout=datetime.timedelta(seconds=timeout_s), **bound)
         module, name = target.split(":")
         out = getattr(importlib.import_module(module), name)(*args)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:

@@ -8,6 +8,13 @@ dimensions of a ``torch.distributed.device_mesh.DeviceMesh`` over them:
 card, ``cuda:LOCAL_RANK``. There is no fallback to the CPU: too few ranks
 or cards raise. Several ranks share one card only where the caller names
 it (``device="cuda:0"``).
+
+Under NCCL a rank is bound to its card before its process group starts
+(:func:`bind_device`, which ``parallel.distributed.initialize`` and
+``parallel.launch`` call and whose card they pass to
+``init_process_group`` as ``device_id``): every collective, a barrier
+too, then runs on that card, never on ``cuda:0`` by default. ``make_mesh``
+agrees with the bound card or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +26,30 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+
+def bind_device(device, local_rank: int) -> torch.device:
+    """Make this rank's card the current device and return it: ``device``
+    where it names one with an index (``"cuda:0"``: every rank on that
+    card), else ``cuda:local_rank``. A card that the host does not have
+    raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        raise ValueError(f"a rank binds a CUDA device, not {device}")
+    if device.index is None:
+        device = torch.device("cuda", local_rank)
+    have = torch.cuda.device_count()
+    if device.index >= have:
+        raise ValueError(f"this rank's card {device} is not there: the host has {have} CUDA "
+                         "devices")
+    torch.cuda.set_device(device)
+    return device
+
+
+def _bound_device() -> Optional[torch.device]:
+    """The card the default process group was started on (``device_id``),
+    or None."""
+    return getattr(dist.group.WORLD, "bound_device_id", None)
 
 
 def make_mesh(
@@ -38,6 +69,8 @@ def make_mesh(
         device: on ``"cuda"``, the card of this rank; default
             ``cuda:LOCAL_RANK``, which needs a card for each rank of the
             host. Naming one (``"cuda:0"``) lets several ranks share it.
+            A process group bound to another card (``device_id``) raises:
+            the rank is never moved.
     """
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.distributed.initialize "
@@ -61,7 +94,11 @@ def make_mesh(
                     f"{per_host} ranks on this host need {per_host} CUDA devices, it has "
                     f"{torch.cuda.device_count()}; name the device to share one card")
             device = torch.device("cuda", local)
-        torch.cuda.set_device(torch.device(device))
+        device, bound = torch.device(device), _bound_device()
+        if bound is not None and bound != device:
+            raise ValueError(f"this rank's process group is bound to {bound}; the mesh asks "
+                             f"for {device}")
+        torch.cuda.set_device(device)
     elif platform != "cpu":
         raise ValueError(f"unknown platform {platform!r}")
     return DeviceMesh(platform, torch.arange(world).reshape(shape), mesh_dim_names=names)
