@@ -5,9 +5,12 @@ equation of state against the JAX package's, with the same weights.
 A small model (2 blocks, width 8, l_max = n_max = 2) in float64. JAX
 differentiates twice with ``jax.hessian`` (forward over reverse) in its
 default CPU mode (its factorized mode's custom VJPs have no forward mode);
-the port runs its default factorized stage with nested
-``torch.autograd.grad`` (reverse over reverse) through its Functions' plain
-versions. On a fixed graph built at the cutoffs the two modes compute one
+the port runs its default factorized stage with the VJP of
+``torch.func.grad`` mapped by ``torch.func.vmap`` over the rows of an
+identity (reverse over reverse, one batched backward, as ``jax.hessian``
+maps its rows) through its Functions' vmap rules and plain versions; the
+batched Hessian is also held to the row-by-row loop it replaced
+(``chip_smoke.row_loop_hessian``, 1e-12). On a fixed graph built at the cutoffs the two modes compute one
 function, so these are the same second derivatives in another summation
 order. Tolerances: rtol 1e-7 with an
 absolute floor of 1e-8 of each array's largest magnitude (the f64 energies
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torch_m3gnet_tpu import simulate as jax_sim
 from torch_m3gnet_tpu.config import M3GNetConfig as JaxConfig
 from torch_m3gnet_tpu.data.graph import pack_structures as jax_pack
@@ -145,3 +149,40 @@ def test_second_derivatives_reject_multi_graph(setup):
                simulate.energy_volume_curve):
         with pytest.raises(ValueError):
             fn(pot, b2)
+
+
+@pytest.mark.parametrize("name", ["elastic_tensor", "force_constants"])
+def test_batched_hessian_equals_row_loop(setup, name, monkeypatch):
+    _, _, pot, _, batch = setup
+    fn = getattr(simulate, name)
+    got = fn(pot, batch)
+    monkeypatch.setattr(simulate.elastic, "_hessian", chip_smoke.row_loop_hessian)
+    want = fn(pot, batch)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
+def test_force_constants_of_a_supercell_in_chunks(monkeypatch):
+    """A 7x7x7 simple-cubic supercell (343 atoms, 1,029 Hessian rows; on
+    the card one pass of every row would fold 65,856 feature rows into B8's
+    grid, past its y limit) under a 256 MB budget: the rows go in chunks,
+    the last one partial, and the rows at the chunk bounds equal the
+    row-by-row loop (1e-12)."""
+    monkeypatch.setattr(simulate.elastic, "HESSIAN_CHUNK_BYTES", 256 << 20)
+    cfg = M3GNetConfig(cutoff=3.0, threebody_cutoff=3.0, **SMALL)
+    pot = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).double()
+    rng = np.random.default_rng(1)
+    cell = Structure(np.eye(3) * 2.5, rng.normal(0, 0.02, (1, 3)), [29]).supercell((7, 7, 7))
+    cell = Structure(cell.lattice, cell.cart_coords + rng.normal(0, 0.02, (343, 3)),
+                     cell.atomic_numbers)
+    batch = pack_structures([cell], 3.0, 3.0, pad_multiple=64, dtype=np.float64)
+    n, rows = 343, 3 * 343
+    chunk = simulate.elastic.hessian_chunk(pot, batch.edge_src.shape[0])
+    assert 1 < chunk < rows and rows % chunk != 0 and rows * 64 > 65_535
+    got = simulate.force_constants(pot, batch).reshape(rows, n, 3)
+    pick = sorted({0, 1, chunk - 1, chunk, 2 * chunk, rows - rows % chunk, rows - 1})
+    graph, energy = simulate.elastic._energy_fn(pot, batch)
+    want = chip_smoke.row_loop_hessian(lambda p: energy(p, graph.lattice), graph.positions,
+                                       pick=pick)
+    want = want[:, :n].numpy()
+    np.testing.assert_allclose(got[pick], want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    assert np.abs(got.sum(axis=1)).max() < 1e-8 * np.abs(got).max()

@@ -57,10 +57,23 @@
 // VMEM-resident accumulator exist for the TPU only and have no counterpart
 // here; A lives in device memory, so there is no node-count cap.
 //
+// The member axis: a committee of K potentials (models/ensemble.py, one
+// torch.func.vmap over the members, as JAX's jax.vmap gives each
+// pallas_call a grid axis over the batch) calls each kernel once for all
+// K members. blockIdx.y is the member (more than 65,535 members, the
+// gridDim.y limit, launch in slices of 65,535); each float operand comes with a
+// member stride in floats, 0 where the members share it (the geometry sh
+// in the committee's forward, the saved primals of a batched Hessian), and
+// the output is K contiguous (rows, cols) slabs. The index src is one for
+// all members, so q_scatter's offsets pass runs once. Each member is
+// summed in the order of a K = 1 call, so the K slabs equal K single
+// calls bit for bit; K = 1 with both strides 0 is the plain call.
+//
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream of the current device, allocates nothing (q_scatter takes an
 // (N + 1,) int32 scratch for the offsets), and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported (l_max, n_max)).
+// (cudaErrorInvalidValue for an unsupported (l_max, n_max) or a member
+// count below 1).
 
 #include <cuda_runtime.h>
 
@@ -71,6 +84,7 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kMaxGridY = 65535;        // gridDim.y limit: a larger member count launches in slices
 constexpr int kQBlock = 256;            // threads per q_scatter block
 constexpr int kQNodes = 4;              // nodes per q_scatter block
 constexpr int kQSplit = 2;              // neighbouring lanes that share one (node, row) sum
@@ -97,7 +111,8 @@ template <int L, int NM>
 __global__ void __launch_bounds__(kQBlock)
 q_scatter_kernel(const float* __restrict__ sh, const float* __restrict__ gm,
                  const int* __restrict__ offsets, float* __restrict__ out,
-                 int num_edges, int num_nodes, bool vec) {
+                 int num_edges, int num_nodes, bool vec, long long sh_stride,
+                 long long gm_stride) {
   constexpr int M = L * L;
   constexpr int LN = L * NM;
   constexpr int MN = M * NM;
@@ -107,6 +122,9 @@ q_scatter_kernel(const float* __restrict__ sh, const float* __restrict__ gm,
   constexpr int kPer = (kPairs + kPairsPerPass - 1) / kPairsPerPass;
   extern __shared__ float4 stage4[];
   float* stage = reinterpret_cast<float*>(stage4);
+  sh += blockIdx.y * sh_stride;  // member blockIdx.y
+  gm += blockIdx.y * gm_stride;
+  out += (size_t)blockIdx.y * MN * num_nodes;
 
   const int n0 = (gridDim.x - 1 - blockIdx.x) * kQNodes;
   const int nodes = min(kQNodes, num_nodes - n0);
@@ -194,10 +212,13 @@ template <int L, int NM>
 __global__ void __launch_bounds__(kBlock)
 r1_gather_kernel(const float* __restrict__ a, const float* __restrict__ sh,
                  const int* __restrict__ src, float* __restrict__ out,
-                 int num_edges, int num_nodes) {
+                 int num_edges, int num_nodes, long long a_stride, long long sh_stride) {
   constexpr int M = L * L;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= num_edges) return;
+  a += blockIdx.y * a_stride;  // member blockIdx.y
+  sh += blockIdx.y * sh_stride;
+  out += (size_t)blockIdx.y * L * NM * num_edges;
   const float* __restrict__ a_i = a + __ldg(src + e);
   float s[M];
 #pragma unroll
@@ -222,9 +243,12 @@ template <int L, int NM>
 __global__ void __launch_bounds__(kBlock)
 r2_gather_kernel(const float* __restrict__ a, const float* __restrict__ gm,
                  const int* __restrict__ src, float* __restrict__ out,
-                 int num_edges, int num_nodes) {
+                 int num_edges, int num_nodes, long long a_stride, long long gm_stride) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= num_edges) return;
+  a += blockIdx.y * a_stride;  // member blockIdx.y
+  gm += blockIdx.y * gm_stride;
+  out += (size_t)blockIdx.y * L * L * num_edges;
   const float* __restrict__ a_i = a + __ldg(src + e);
 #pragma unroll
   for (int l = 0; l < L; ++l) {
@@ -244,7 +268,8 @@ r2_gather_kernel(const float* __restrict__ a, const float* __restrict__ gm,
 
 template <int L, int NM>
 cudaError_t launch_q(const float* sh, const float* gm, const int* src, int* offsets,
-                     float* out, int num_edges, int num_nodes, cudaStream_t stream) {
+                     float* out, int num_edges, int num_nodes, int members,
+                     long long sh_stride, long long gm_stride, cudaStream_t stream) {
   constexpr int kSmem = (L * L + L * NM) * kQStride * (int)sizeof(float);
   if (kSmem > 48 * 1024) {  // (l_max, n_max) = (4, 4) stages 66 KB
     const cudaError_t err = cudaFuncSetAttribute(
@@ -252,26 +277,42 @@ cudaError_t launch_q(const float* sh, const float* gm, const int* src, int* offs
     if (err != cudaSuccess) return err;
   }
   launch_segment_offsets(src, offsets, num_edges, num_nodes, stream);
+  // Every member's rows stay 16-byte aligned: the strides are multiples of 4.
   const bool vec = num_edges % 4 == 0 && reinterpret_cast<uintptr_t>(sh) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(gm) % 16 == 0;
-  const int grid = (num_nodes + kQNodes - 1) / kQNodes;
-  q_scatter_kernel<L, NM><<<grid, kQBlock, kSmem, stream>>>(sh, gm, offsets, out, num_edges,
-                                                           num_nodes, vec);
+                   reinterpret_cast<uintptr_t>(gm) % 16 == 0 && sh_stride % 4 == 0 &&
+                   gm_stride % 4 == 0;
+  for (int k0 = 0; k0 < members; k0 += kMaxGridY) {
+    const dim3 grid((num_nodes + kQNodes - 1) / kQNodes, min(members - k0, kMaxGridY));
+    q_scatter_kernel<L, NM><<<grid, kQBlock, kSmem, stream>>>(
+        sh + k0 * sh_stride, gm + k0 * gm_stride, offsets,
+        out + (size_t)k0 * L * L * NM * num_nodes, num_edges, num_nodes, vec, sh_stride,
+        gm_stride);
+  }
   return cudaSuccess;
 }
 
 template <int L, int NM>
 void launch_r1(const float* a, const float* sh, const int* src, float* out,
-               int num_edges, int num_nodes, cudaStream_t stream) {
-  const int grid = (num_edges + kBlock - 1) / kBlock;
-  r1_gather_kernel<L, NM><<<grid, kBlock, 0, stream>>>(a, sh, src, out, num_edges, num_nodes);
+               int num_edges, int num_nodes, int members, long long a_stride,
+               long long sh_stride, cudaStream_t stream) {
+  for (int k0 = 0; k0 < members; k0 += kMaxGridY) {
+    const dim3 grid((num_edges + kBlock - 1) / kBlock, min(members - k0, kMaxGridY));
+    r1_gather_kernel<L, NM><<<grid, kBlock, 0, stream>>>(
+        a + k0 * a_stride, sh + k0 * sh_stride, src,
+        out + (size_t)k0 * L * NM * num_edges, num_edges, num_nodes, a_stride, sh_stride);
+  }
 }
 
 template <int L, int NM>
 void launch_r2(const float* a, const float* gm, const int* src, float* out,
-               int num_edges, int num_nodes, cudaStream_t stream) {
-  const int grid = (num_edges + kBlock - 1) / kBlock;
-  r2_gather_kernel<L, NM><<<grid, kBlock, 0, stream>>>(a, gm, src, out, num_edges, num_nodes);
+               int num_edges, int num_nodes, int members, long long a_stride,
+               long long gm_stride, cudaStream_t stream) {
+  for (int k0 = 0; k0 < members; k0 += kMaxGridY) {
+    const dim3 grid((num_edges + kBlock - 1) / kBlock, min(members - k0, kMaxGridY));
+    r2_gather_kernel<L, NM><<<grid, kBlock, 0, stream>>>(
+        a + k0 * a_stride, gm + k0 * gm_stride, src,
+        out + (size_t)k0 * L * L * num_edges, num_edges, num_nodes, a_stride, gm_stride);
+  }
 }
 
 }  // namespace
@@ -284,18 +325,27 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
 
 #define M3G_CASE_q(L_, N_)                                                          \
   case L_ * 8 + N_: {                                                               \
-    const cudaError_t err = launch_q<L_, N_>(x, y, idx, off, o, num_edges, num_nodes, s); \
+    const cudaError_t err = launch_q<L_, N_>(x, y, idx, off, o, num_edges, num_nodes, \
+                                             members, x_stride, y_stride, s);            \
     if (err != cudaSuccess) return (int)err;                                        \
   } break;
-#define M3G_CASE_r1(L_, N_) \
-  case L_ * 8 + N_: launch_r1<L_, N_>(x, y, idx, o, num_edges, num_nodes, s); break;
-#define M3G_CASE_r2(L_, N_) \
-  case L_ * 8 + N_: launch_r2<L_, N_>(x, y, idx, o, num_edges, num_nodes, s); break;
+#define M3G_CASE_r1(L_, N_)                                                              \
+  case L_ * 8 + N_:                                                                      \
+    launch_r1<L_, N_>(x, y, idx, o, num_edges, num_nodes, members, x_stride, y_stride, s); \
+    break;
+#define M3G_CASE_r2(L_, N_)                                                              \
+  case L_ * 8 + N_:                                                                      \
+    launch_r2<L_, N_>(x, y, idx, o, num_edges, num_nodes, members, x_stride, y_stride, s); \
+    break;
+
+#define M3G_MEMBERS_OK(K) ((K) >= 1)
 
 #define M3G_ENTRY(NAME, LAUNCH)                                                 \
   extern "C" int NAME(const void* in0, const void* in1, const void* src,       \
                       void* out, int num_edges, int num_nodes, int l_max,       \
-                      int n_max, void* stream) {                                \
+                      int n_max, int members, long long x_stride,               \
+                      long long y_stride, void* stream) {                       \
+    if (!M3G_MEMBERS_OK(members)) return (int)cudaErrorInvalidValue;            \
     const float* x = static_cast<const float*>(in0);                            \
     const float* y = static_cast<const float*>(in1);                            \
     const int* idx = static_cast<const int*>(src);                              \
@@ -309,11 +359,14 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
     return (int)cudaGetLastError();                                             \
   }
 
-// q_scatter(sh, gm, src) -> A (MN, num_nodes); offsets is an
-// (num_nodes + 1,) int32 scratch.
+// q_scatter(sh, gm, src) -> A (members, MN, num_nodes); offsets is an
+// (num_nodes + 1,) int32 scratch; x_stride, y_stride: the member strides of
+// sh and gm in floats (0: shared).
 extern "C" int m3g_q_scatter(const void* sh, const void* gm, const void* src, void* offsets,
                              void* out, int num_edges, int num_nodes, int l_max, int n_max,
+                             int members, long long x_stride, long long y_stride,
                              void* stream) {
+  if (!M3G_MEMBERS_OK(members)) return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(sh);
   const float* y = static_cast<const float*>(gm);
   const int* idx = static_cast<const int*>(src);
@@ -328,7 +381,8 @@ extern "C" int m3g_q_scatter(const void* sh, const void* gm, const void* src, vo
   return (int)cudaGetLastError();
 }
 
-// r1_gather(A, sh, src) -> out (LN, num_edges); in0 = A, in1 = sh.
+// r1_gather(A, sh, src) -> out (members, LN, num_edges); in0 = A, in1 = sh,
+// with member strides x_stride, y_stride in floats (0: shared).
 M3G_ENTRY(m3g_r1_gather, r1)
-// r2_gather(A, gm, src) -> out (M, num_edges); in0 = A, in1 = gm.
+// r2_gather(A, gm, src) -> out (members, M, num_edges); in0 = A, in1 = gm.
 M3G_ENTRY(m3g_r2_gather, r2)

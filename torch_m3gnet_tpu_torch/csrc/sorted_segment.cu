@@ -38,7 +38,10 @@
 //        no registers hold the loads. Each thread adds its run's part of a
 //        chunk, in order, into R chunk partials that it adds to R sums
 //        carried across chunks. The offsets and span ends are read once for
-//        R rows. R and sb come from (F, S): the largest divisor R <= 4 of F
+//        R rows. R and sb come from (F, S), with F the rows of one member
+//        where a committee folds K members' rows into one call (so each
+//        member is summed in the order of its own call, and the grid has
+//        K times the blocks): the largest divisor R <= 4 of F
 //        whose grid (sb = 256) has kFullBlocks (four blocks per SM of an
 //        H100), else R = 1 with sb halved (down to 64) until the grid has
 //        one block per SM. So the node aggregation (F = 64, S = 3,584) runs
@@ -126,11 +129,21 @@ void tiled_shape(int rows, int num_segments, int* r_out, int* sb_out) {
   *sb_out = sb;
 }
 
+// gridDim.y limit: more row blocks than this launch in slices of rows.
+constexpr int kMaxGridY = 65535;
+
 template <int R>
 void launch_tiled(const float* x, const int* off, float* o, int rows, int m_len,
                   int num_segments, int sb, bool vec, cudaStream_t s) {
-  const dim3 grid((num_segments + sb - 1) / sb, (rows + R - 1) / R);
-  segment_sum_tiled<R><<<grid, sb, 0, s>>>(x, off, o, rows, m_len, num_segments, vec);
+  // Slices of kMaxGridY * R rows start on a multiple of R, so every block
+  // owns the same R rows as in one grid.
+  for (int r0 = 0; r0 < rows; r0 += kMaxGridY * R) {
+    const int n = min(rows - r0, kMaxGridY * R);
+    const dim3 grid((num_segments + sb - 1) / sb, (n + R - 1) / R);
+    segment_sum_tiled<R><<<grid, sb, 0, s>>>(x + (size_t)r0 * m_len, off,
+                                             o + (size_t)r0 * num_segments, n, m_len,
+                                             num_segments, vec);
+  }
 }
 
 }  // namespace
@@ -144,10 +157,15 @@ void launch_tiled(const float* x, const int* off, float* o, int rows, int m_len,
 // it holds seg's offsets already (the batch's, built once per batch) and
 // the offsets pass is skipped; otherwise it is a scratch that the pass
 // fills. Every output element is written, empty segments with 0.
+// tile_rows divides rows: the rows of one member when several members'
+// rows are folded into one call (a committee). The tiled sum picks its
+// shape for tile_rows, so that a block never straddles two members and
+// each member is summed in the order of a call with tile_rows rows.
 extern "C" int m3g_sorted_segment_sum(const void* data, const void* seg, void* offsets,
                                       void* out, int rows, int m_len, int num_segments,
-                                      int offsets_given, void* stream) {
-  if (rows <= 0 || num_segments <= 0 || m_len < 0) return (int)cudaErrorInvalidValue;
+                                      int offsets_given, int tile_rows, void* stream) {
+  if (rows <= 0 || num_segments <= 0 || m_len < 0 || tile_rows <= 0 || rows % tile_rows != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(data);
   int* off = static_cast<int*>(offsets);
@@ -155,11 +173,12 @@ extern "C" int m3g_sorted_segment_sum(const void* data, const void* seg, void* o
   if (!offsets_given)
     launch_segment_offsets(static_cast<const int*>(seg), off, m_len, num_segments, s);
   if (m_len / num_segments > kLongRun) {
-    segment_sum_block<<<dim3(num_segments, rows), kBlock, 0, s>>>(x, off, o, m_len,
-                                                                 num_segments);
+    for (int r0 = 0; r0 < rows; r0 += kMaxGridY)
+      segment_sum_block<<<dim3(num_segments, min(rows - r0, kMaxGridY)), kBlock, 0, s>>>(
+          x + (size_t)r0 * m_len, off, o + (size_t)r0 * num_segments, m_len, num_segments);
   } else {
     int r = 1, sb = kBlock;
-    tiled_shape(rows, num_segments, &r, &sb);
+    tiled_shape(tile_rows, num_segments, &r, &sb);
     const bool vec = m_len % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     switch (r) {
       M3G_SEG_ROWS(M3G_CASE_TILED)

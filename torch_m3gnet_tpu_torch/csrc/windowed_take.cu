@@ -65,6 +65,7 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kScatterRows = 4;      // rows a scatter block owns: the four of the geometry
 constexpr int kScatterEdgesE2 = 128;  // edges a scatter block owns by an order (kBlock without)
+constexpr int kMaxGridY = 65535;
 
 __global__ void __launch_bounds__(kBlock)
 windowed_take_kernel(const float* __restrict__ data, const int* __restrict__ idx,
@@ -117,18 +118,23 @@ extern "C" int m3g_windowed_scatter(const void* vals, const void* order, const v
   const int* ord = static_cast<const int*>(order);
   const int* off = static_cast<const int*>(offsets);
   float* o = static_cast<float*>(out);
-  const int row_blocks = (rows + kScatterRows - 1) / kScatterRows;
   // 16-byte staging of the span: of the order where there is one, else of
   // vals, where the pointer is aligned and the span's last quad ends inside
   const bool vec = num_idx % 4 == 0 && aligned16(ord != nullptr ? (const void*)ord : vals);
-  if (ord != nullptr) {
-    const dim3 grid((num_cols + kScatterEdgesE2 - 1) / kScatterEdgesE2, row_blocks);
-    windowed_scatter_owned<true><<<grid, kScatterEdgesE2, 0, s>>>(v, ord, off, o, rows, num_cols,
-                                                                 num_idx, vec);
-  } else {
-    const dim3 grid(grid_for(num_cols), row_blocks);
-    windowed_scatter_owned<false><<<grid, kBlock, 0, s>>>(v, nullptr, off, o, rows, num_cols,
-                                                         num_idx, vec);
+  // More than kMaxGridY row blocks (the gridDim.y limit) launch in slices.
+  for (int r0 = 0; r0 < rows; r0 += kMaxGridY * kScatterRows) {
+    const int n = min(rows - r0, kMaxGridY * kScatterRows);
+    const dim3 grid(ord != nullptr ? (num_cols + kScatterEdgesE2 - 1) / kScatterEdgesE2
+                                   : grid_for(num_cols),
+                    (n + kScatterRows - 1) / kScatterRows);
+    const float* vr = v + (size_t)r0 * num_idx;
+    float* orow = o + (size_t)r0 * num_cols;
+    if (ord != nullptr)
+      windowed_scatter_owned<true><<<grid, kScatterEdgesE2, 0, s>>>(vr, ord, off, orow, n,
+                                                                   num_cols, num_idx, vec);
+    else
+      windowed_scatter_owned<false><<<grid, kBlock, 0, s>>>(vr, nullptr, off, orow, n, num_cols,
+                                                           num_idx, vec);
   }
   return (int)cudaGetLastError();
 }

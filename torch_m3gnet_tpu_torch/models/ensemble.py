@@ -5,14 +5,18 @@ Counterpart of ``torch_m3gnet_tpu.models.ensemble``: train K potentials
 mean prediction and its disagreement, the usual active-learning and
 uncertainty signal.
 
-JAX maps one jitted forward over the members with ``jax.vmap``. The port's
-kernel Functions (B1-B8) are written in the ``ctx`` style, with no
-``setup_context`` and so no vmap rule; the port loops over the members
-instead, each through ``torch.func.functional_call`` on the one potential
-module, so an evaluation of K members launches exactly K evaluations'
-kernels. The batch moves to the device, with its kernel index, once for
-all members. A vmapped version waits until the Functions move to
-``setup_context``.
+As JAX maps one jitted forward over the members with ``jax.vmap``, the
+port maps one: ``torch.func.vmap`` of ``torch.func.functional_call`` over
+the stacked weights, with the batch (and its kernel index) moved to the
+device once and shared, not batched. Each member takes its forces and
+stress from the potential's functional pass (``M3GNetPotential.forward``
+with ``functional=True``: ``torch.func.vjp`` of the energy). Every kernel
+Function has a vmap rule (``ops._vmap``), so each kernel call of the
+evaluation runs once for all K members: B1-B3 on their member axis (the
+geometry read once, by stride 0), B6-B8 with the members' rows folded into
+one call, B4/B5 (the fused mode) one launch per member. The dense layers
+run as batched matrix products. A committee in the factorized mode thus
+launches one evaluation's kernels, not K.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import dataclasses
 from typing import Mapping, Sequence
 
 import torch
-from torch.func import functional_call
+from torch.func import functional_call, vmap
 
 from torch_m3gnet_tpu_torch.data.graph import to_torch
 from torch_m3gnet_tpu_torch.models.m3gnet import PotentialOutput
@@ -48,6 +52,15 @@ class EnsemblePotential:
     atom and atomic energy. Padded entries stay zero in both. The members
     share the potential's constants (elemental energies, energy scale) and
     its three-body mode; their weights are cast to its device and dtype.
+    ``remat_triplets`` does not apply to the committee: see the functional
+    pass of :class:`M3GNetPotential`.
+
+    Memory: the one pass holds every member's activations at once. On an
+    H100 (the default model, the 32-cell bench batch, f32) a committee of 3
+    peaked at 7.16 GB against 3.56 GB for one evaluation (the loop it
+    replaced peaked near one evaluation's), so a batch whose single
+    evaluation needs more than about half the card no longer fits a
+    committee of 3: evaluate it in smaller batches, or fewer members a call.
     """
 
     def __init__(self, potential):
@@ -59,11 +72,12 @@ class EnsemblePotential:
         param = model.edge_init.kernel
         graph = to_torch(batch, param.device, param.dtype, model.batch_index)
         stacked = {k: v.to(param.device, param.dtype) for k, v in stacked.items()}
-        k = next(iter(stacked.values())).shape[0]
-        outs = [functional_call(self.potential, {name: v[i] for name, v in stacked.items()},
-                                (graph,))
-                for i in range(k)]
-        per_field = {f: torch.stack([getattr(o, f).detach() for o in outs]) for f in _FIELDS}
+
+        def member(params):
+            out = functional_call(self.potential, params, (graph,), {"functional": True})
+            return tuple(getattr(out, f) for f in _FIELDS)
+
+        per_field = dict(zip(_FIELDS, (x.detach() for x in vmap(member)(stacked))))
         mean = PotentialOutput(**{f: x.mean(0) for f, x in per_field.items()})
         std = PotentialOutput(**{f: x.std(0, correction=0) for f, x in per_field.items()})
         return mean, std

@@ -72,11 +72,13 @@ from torch.utils.checkpoint import checkpoint
 from torch_m3gnet_tpu_torch.data.graph import GraphBatch, to_torch
 from torch_m3gnet_tpu_torch.models.layers import DenseFM, Embed, GatedMLPFM
 from torch_m3gnet_tpu_torch.ops.basis import (
+    chi_norm_constants,
     cutoff_poly,
     legendre_cos_all,
     normalized_spherical_bessel,
     real_racah_harmonics_fm,
     smooth_radial_basis_fm,
+    spherical_bessel_zeros,
 )
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
 from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum, triplet_e2_order
@@ -198,6 +200,12 @@ class M3GNet(nn.Module):
         # no call copies it from the host (a synchronising copy).
         self.register_buffer("sph_norm_t", torch.tensor(self.sph_norm, dtype=torch.float64),
                              persistent=False)
+        # The radial basis' (roots, norms), likewise (a cache filled inside
+        # a torch.func transform, a committee or a Hessian, would keep
+        # tensors of that transform's level).
+        chi = (spherical_bessel_zeros(l_max + 1, n_max)[:l_max],
+               chi_norm_constants(cutoff / length_scale, l_max, n_max))
+        self.register_buffer("chi_constants", torch.as_tensor(np.stack(chi)), persistent=False)
 
     @property
     def batch_index(self) -> tuple[str, ...]:
@@ -209,10 +217,15 @@ class M3GNet(nn.Module):
                  "fused": ("triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets")}
         return ("edge_src_offsets",) + extra.get(self.threebody_mode, ())
 
-    def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor, group=None):
+    def forward(self, graph: GraphBatch, r_vec_fm: torch.Tensor, group=None,
+                remat: bool | None = None):
         """Returns (per-graph energy (B,), per-atom energy (N,)), both in eV.
         On a shard of a partitioned graph (``group`` given) both are the
-        shard's own share: the energy of its nodes."""
+        shard's own share: the energy of its nodes. ``remat`` (default
+        ``remat_triplets``) runs each block's three-body stage under the
+        checkpoint; ``torch.func`` transforms refuse its saved-tensor
+        hooks, so the functional path passes False (remat changes no
+        value)."""
         dtype = r_vec_fm.dtype
         cdtype = self.compute_dtype or dtype
         n_max = self.n_max
@@ -238,7 +251,7 @@ class M3GNet(nn.Module):
             triplet_aggregate = self._factorized_stage(graph, r_fm, dist, cdtype, group)
         else:
             triplet_aggregate = self._triplet_stage(graph, r_fm, dist, cdtype, group)
-        if self.remat_triplets:
+        if self.remat_triplets if remat is None else remat:
             stage = triplet_aggregate
 
             def triplet_aggregate(gate_fm):
@@ -288,7 +301,8 @@ class M3GNet(nn.Module):
         src, dst = graph.edge_src, graph.edge_dst
         u_fm = r_fm / dist[None, :]  # padded edges: dist = rc > 0
         sh_fm = real_racah_harmonics_fm(u_fm, l_max)  # (M, E)
-        chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max)  # (l, n, E)
+        chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max,
+                                             self.chi_constants)  # (l, n, E)
         fc_e = cutoff_poly(dist, rc3) * graph.edge_mask.to(dist.dtype)  # zero on padded edges
         chifc = (chi_fm * fc_e).reshape(ln, num_edges).to(cdtype)
         fcn = torch.stack([c * fc_e for c in self.sph_norm])  # (l, E)
@@ -345,7 +359,7 @@ class M3GNet(nn.Module):
         cos_jik = torch.clamp((g1[:3] * g2[:3]).sum(0) / (rij * rik), -1.0, 1.0)
         fc = cutoff_poly(rij, rc3) * cutoff_poly(rik, rc3)  # (T,)
         sph = legendre_cos_all(cos_jik, l_max) * self.sph_norm_t[:, None].to(cos_jik.dtype)
-        chi = normalized_spherical_bessel(rik, rc, l_max, n_max)  # (l, n, T)
+        chi = normalized_spherical_bessel(rik, rc, l_max, n_max, self.chi_constants)  # (l, n, T)
         # The mask stays: padded triplets point at real edges (e2 = 0), and
         # it is what zeroes their gradient.
         basis_fm = (chi * sph[:, None, :] * fc).reshape(l_max * n_max, -1)
@@ -390,6 +404,19 @@ class M3GNetPotential(nn.Module):
     ``create_graph=True`` (training) keeps the graph of the backward pass,
     so forces and stress differentiate to the weights; evaluation leaves it
     False.
+
+    ``functional=True`` takes the same pass as a pure function, ``g_fm`` by
+    ``torch.func.vjp`` of the energy, with no ``requires_grad_`` and no
+    ``torch.autograd.grad``: the form that runs under ``torch.func.vmap``
+    over stacked weights (``models.ensemble``), as JAX's potential runs
+    under ``jax.vmap``. ``create_graph`` means what it means on the eager
+    path: False frees the energy's graph as the backward pass runs (forces
+    and stress do not differentiate further), True keeps it for an outer
+    ``torch.func`` transform. It runs the three-body stage without
+    ``remat_triplets``' checkpoint (``torch.func`` refuses its
+    saved-tensor hooks; remat changes no value), and takes no ``group``.
+    Both paths assemble forces and stress in :meth:`assemble` and agree at
+    f64 to rounding.
     """
 
     def __init__(self, model: M3GNet, stress_mode: str = "strain"):
@@ -399,23 +426,43 @@ class M3GNetPotential(nn.Module):
         self.model = model
         self.stress_mode = stress_mode
 
-    def forward(self, batch, create_graph: bool = False, group=None) -> PotentialOutput:
+    def forward(self, batch, create_graph: bool = False, group=None,
+                functional: bool = False) -> PotentialOutput:
         """E/F/S of ``batch``. With ``group`` (a process group), ``batch`` is
         this rank's shard of a partitioned graph
         (``parallel.graph_shard``): forces and atomic energies are its own
         nodes', the energy and the stress the whole graph's."""
+        if functional and group is not None:
+            raise ValueError("functional=True takes no process group")
         param = self.model.edge_init.kernel
         graph = to_torch(batch, param.device, param.dtype, self.model.batch_index,
                          num_dst_nodes=None if group is None else extended_nodes(batch, group))
         positions, lattice = graph.positions, graph.lattice
-        nb = graph.num_graphs
+        if functional:
+            r_fm = edge_vectors_fm(graph, positions, lattice)  # (3, E)
+
+            def total_energy(r):
+                energy, atomic = self.model(graph, r, remat=False)
+                return energy.sum(), (energy, atomic)
+
+            total, vjp_fn, (energy, atomic) = torch.func.vjp(total_energy, r_fm, has_aux=True)
+            (g_fm,) = vjp_fn(torch.ones_like(total), retain_graph=create_graph,
+                             create_graph=create_graph)
+            return self.assemble(graph, r_fm, g_fm, energy, atomic)
         with torch.enable_grad():
             r_fm = edge_vectors_fm(graph, positions, lattice, group)  # (3, E)
             if not r_fm.requires_grad:
                 r_fm.requires_grad_(True)
             energy, atomic = self.model(graph, r_fm, group)
             (g_fm,) = torch.autograd.grad(energy.sum(), r_fm, create_graph=create_graph)  # (3, E)
+        return self.assemble(graph, r_fm, g_fm, energy, atomic, group)
 
+    def assemble(self, graph: GraphBatch, r_fm, g_fm, energy, atomic,
+                 group=None) -> PotentialOutput:
+        """Forces and stress from the edge vectors ``r_fm`` and the energy's
+        gradient ``g_fm`` with respect to them, (3, E) each."""
+        positions, lattice = graph.positions, graph.lattice
+        nb = graph.num_graphs
         src, dst = graph.edge_src, graph.edge_dst
         nmask = graph.node_mask.to(g_fm.dtype)[None, :]
         if group is None:

@@ -24,15 +24,18 @@ BUILD_DIR = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types; every entry returns cudaError_t as int
 # and takes the stream last.
 _ENTRIES = {
-    # (sh, gm, src, offsets scratch, out, num_edges, num_nodes, l_max, n_max, stream)
-    "m3g_q_scatter": [_P] * 5 + [_I] * 4 + [_P],
-    # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, stream)
-    "m3g_r1_gather": [_P] * 4 + [_I] * 4 + [_P],
-    "m3g_r2_gather": [_P] * 4 + [_I] * 4 + [_P],
+    # (sh, gm, src, offsets scratch, out, num_edges, num_nodes, l_max, n_max,
+    #  members, sh member stride, gm member stride, stream); a stride of 0:
+    #  the operand is shared by every member
+    "m3g_q_scatter": [_P] * 5 + [_I] * 5 + [_L] * 2 + [_P],
+    # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, members,
+    #  in0 member stride, in1 member stride, stream)
+    "m3g_r1_gather": [_P] * 4 + [_I] * 5 + [_L] * 2 + [_P],
+    "m3g_r2_gather": [_P] * 4 + [_I] * 5 + [_L] * 2 + [_P],
     # (data, idx, out, rows, num_cols, num_idx, stream)
     "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
     # (vals, order or NULL, offsets, out, rows, num_cols, num_idx, stream)
@@ -43,8 +46,8 @@ _ENTRIES = {
     #  num_edges, num_trip, stream)
     "m3g_backward_pair": [_P] * 9 + [_I] * 3 + [_P],
     # (data, seg, offsets (given or scratch), out, rows, num_rows_m, num_segments,
-    #  offsets given, stream)
-    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 4 + [_P],
+    #  offsets given, rows of one member, stream)
+    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

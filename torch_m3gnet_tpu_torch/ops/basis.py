@@ -121,24 +121,17 @@ def spherical_bessel_all(z: torch.Tensor, l_max: int) -> torch.Tensor:
     )
 
 
-@lru_cache(maxsize=None)
-def _chi_constants(cutoff: float, l_max: int, n_max: int, device: torch.device,
-                   dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (l_max, n_max) roots z_ln and norms of chi on ``device``, copied
-    from the host once per (device, dtype): a copy from pageable memory
-    synchronises the device with the host, which the MD and relaxation
-    steps must not do. Read-only: no caller writes to them."""
-    zeros = spherical_bessel_zeros(l_max + 1, n_max)[:l_max]
-    norm = chi_norm_constants(cutoff, l_max, n_max)
-    return (torch.as_tensor(zeros, dtype=dtype, device=device),
-            torch.as_tensor(norm, dtype=dtype, device=device))
-
-
 def normalized_spherical_bessel(
-    r: torch.Tensor, cutoff: float, l_max: int, n_max: int
+    r: torch.Tensor, cutoff: float, l_max: int, n_max: int, constants=None
 ) -> torch.Tensor:
-    """chi_ln(r) = norm_ln * j_l(z_ln r / rc): shape (l_max, n_max, *r.shape)."""
-    zeros, norm = _chi_constants(cutoff, l_max, n_max, r.device, r.dtype)
+    """chi_ln(r) = norm_ln * j_l(z_ln r / rc): shape (l_max, n_max, *r.shape).
+    ``constants``: the (l_max, n_max) roots z_ln and norms as tensors on
+    ``r``'s device (the model's buffers), cast to its dtype here; without
+    them they are copied from the host, which on the card synchronises."""
+    if constants is None:
+        constants = (torch.as_tensor(spherical_bessel_zeros(l_max + 1, n_max)[:l_max]),
+                     torch.as_tensor(chi_norm_constants(cutoff, l_max, n_max)))
+    zeros, norm = (c.to(device=r.device, dtype=r.dtype) for c in constants)
     shape = (n_max,) + (1,) * r.dim()
     chis = []
     for ell in range(l_max):

@@ -35,6 +35,11 @@ bilinear, so the VJPs close over the two ops (as ``_vjp_bwd`` and
 
 and ``create_graph=True`` works to any order.
 
+Under ``torch.func`` (``vmap``, ``grad``, ``vjp``) the Functions take their
+float operands as (rows, cols), shared, or with a leading member axis,
+(K, rows, cols) (``ops._vmap``). The kernels have no member axis yet: K members are K
+launches of the same kernel (the plain version per member on the CPU).
+
 ``LAUNCHES`` counts the calls of each op that launch its kernel (CUDA path
 only).
 """
@@ -43,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from torch_m3gnet_tpu_torch.ops import _cuda
+from torch_m3gnet_tpu_torch.ops import _cuda, _vmap
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum_fm, take_fm
 
 # The forward kernel is instantiated for LN = 1..16 rows (csrc/fused_triplet.cu).
@@ -94,7 +99,8 @@ def triplet_e2_order(e2: torch.Tensor, num_edges: int) -> tuple[torch.Tensor, to
 
 
 def _check(name, e1, e2, num_edges, pairs, order, off2) -> bool:
-    """Validate shapes (every path); True for the CUDA path."""
+    """Validate the shapes of one member (every path); True for the CUDA
+    path."""
     t = e1.shape[0] if e1.dim() == 1 else -1
     if e1.dim() != 1 or tuple(e2.shape) != (t,):
         raise ValueError(
@@ -163,27 +169,53 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
 # ---------------------------------------------------------------------------
 
 
+def _members(name, pairs, fn, rest):
+    """``fn`` (one member's launch or plain version) for each member of
+    operands with a member axis: the kernels have none yet, so K members
+    are K launches."""
+    return _vmap.per_member(fn, _vmap.members(name, pairs), [x for _, x in pairs], rest)
+
+
 class FusedTripletGateSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+    def forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+        return _members("fused_triplet_gate_sum", [("basis", basis_fm), ("gate_e", gate_e_fm)],
+                        _forward, (e1, e2, num_edges, order, off2))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        basis_fm, gate_e_fm, e1, e2, num_edges, order, off2 = inputs
         ctx.save_for_backward(basis_fm, gate_e_fm, e1, e2, order, off2)
         ctx.num_edges = num_edges
-        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def backward(ctx, g):
         basis_fm, gate_e_fm, e1, e2, order, off2 = ctx.saved_tensors
         d_basis, d_gate = BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, ctx.num_edges,
                                              order, off2)
-        return d_basis, d_gate, None, None, None, None, None
+        return (_vmap.reduce_to(d_basis, basis_fm), _vmap.reduce_to(d_gate, gate_e_fm),
+                None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+        _vmap.shared_index("fused_triplet_gate_sum", in_dims,
+                           {"e1": 2, "e2": 3, "e2 order": 5, "e2 offsets": 6})
+        basis_fm, gate_e_fm = _vmap.batch_first("fused_triplet_gate_sum", in_dims[:2],
+                                                (basis_fm, gate_e_fm))
+        return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2), 0
 
 
 class BackwardPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+    def forward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+        return _members("backward_pair", [("basis", basis_fm), ("gate_e", gate_e_fm), ("g", g)],
+                        _backward, (e1, e2, num_edges, order, off2))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2 = inputs
         ctx.save_for_backward(basis_fm, gate_e_fm, g, e1, e2, order, off2)
         ctx.num_edges = num_edges
-        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def backward(ctx, u_b, u_g):
@@ -196,7 +228,16 @@ class BackwardPair(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             g_g = (FusedTripletGateSum.apply(u_b, gate_e_fm, e1, e2, e, order, off2)
                    + FusedTripletGateSum.apply(basis_fm, u_g, e1, e2, e, order, off2))
-        return g_basis, g_gate, g_g, None, None, None, None, None
+        return (_vmap.reduce_to(g_basis, basis_fm), _vmap.reduce_to(g_gate, gate_e_fm),
+                _vmap.reduce_to(g_g, g), None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+        _vmap.shared_index("backward_pair", in_dims,
+                           {"e1": 3, "e2": 4, "e2 order": 6, "e2 offsets": 7})
+        basis_fm, gate_e_fm, g = _vmap.batch_first("backward_pair", in_dims[:3],
+                                                   (basis_fm, gate_e_fm, g))
+        return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2), (0, 0)
 
 
 def fused_triplet_gate_sum(basis_fm, gate_e_fm, e1, e2, num_edges: int,

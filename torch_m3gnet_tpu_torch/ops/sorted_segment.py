@@ -25,6 +25,10 @@ tensor; on CUDA there is no fallback. Its VJP is the gather ``g[:, seg]``
 VJP is the segment sum again, so ``create_graph=True`` works to any order
 and the training step's double backward runs the kernel too.
 
+Under ``torch.func`` (``vmap``, ``grad``, ``vjp``) the Functions take
+``data`` with a leading member axis, (K, F, M), which folds into the rows:
+one launch for every member (``ops._vmap``).
+
 ``LAUNCHES`` counts the calls that launch the kernel (CUDA path only).
 """
 
@@ -32,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from torch_m3gnet_tpu_torch.ops import _cuda
+from torch_m3gnet_tpu_torch.ops import _cuda, _vmap
 
 LAUNCHES = {"sorted_segment_sum": 0}
 
@@ -61,9 +65,9 @@ def _forward(data_fm, seg, num_segments, offsets):
     name = "sorted_segment_sum"
     if seg.dim() != 1:
         raise ValueError(f"{name}: seg must be 1-D, got shape {tuple(seg.shape)}")
-    if data_fm.dim() != 2 or data_fm.shape[1] != seg.shape[0]:
+    if data_fm.dim() not in (2, 3) or data_fm.shape[-1] != seg.shape[0]:
         raise ValueError(
-            f"{name}: data has shape {tuple(data_fm.shape)}, expected (F, {seg.shape[0]})"
+            f"{name}: data has shape {tuple(data_fm.shape)}, expected ([K,] F, {seg.shape[0]})"
         )
     indices = [("seg", seg)]
     if offsets is not None:
@@ -71,52 +75,79 @@ def _forward(data_fm, seg, num_segments, offsets):
             raise ValueError(f"{name}: offsets has shape {tuple(offsets.shape)}, "
                              f"expected ({num_segments + 1},)")
         indices.append(("offsets", offsets))
+    # The member axis folds into the rows: the sum is row-parallel, the index shared.
+    lead, (f, m) = data_fm.shape[:-2], data_fm.shape[-2:]
+    rows = data_fm.reshape(-1, m)
     if not _cuda.is_cuda(name, [("data", data_fm)], indices):
-        return sorted_segment_sum_fm_plain(data_fm, seg, num_segments)
-    f, m = data_fm.shape
+        return sorted_segment_sum_fm_plain(rows, seg, num_segments).reshape(*lead, f, num_segments)
     dev = data_fm.device
-    out = torch.empty((f, num_segments), dtype=torch.float32, device=dev)
+    out = torch.empty((*lead, f, num_segments), dtype=torch.float32, device=dev)
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
-    data_fm = data_fm.contiguous()
+    rows = rows.contiguous()
     given = offsets is not None
     if not given:
         offsets = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
-    _cuda.launch(LAUNCHES, name, "m3g_sorted_segment_sum", dev, data_fm.data_ptr(),
-                 seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), f, m, num_segments,
-                 int(given))
+    # The kernel tiles the rows as for one member's f, so that each member
+    # is summed in the order of a call on its own.
+    _cuda.launch(LAUNCHES, name, "m3g_sorted_segment_sum", dev, rows.data_ptr(),
+                 seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows.shape[0], m,
+                 num_segments, int(given), f)
     return out
 
 
 class SortedSegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data_fm, seg, num_segments, offsets):
-        ctx.save_for_backward(seg, offsets)
+    def forward(data_fm, seg, num_segments, offsets):
         return _forward(data_fm, seg, num_segments, offsets)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, seg, _, offsets = inputs
+        ctx.save_for_backward(seg, offsets)
 
     @staticmethod
     def backward(ctx, g):
         seg, offsets = ctx.saved_tensors
         return SortedTake.apply(g, seg, offsets), None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, data_fm, seg, num_segments, offsets):
+        _vmap.shared_index("sorted_segment_sum", in_dims, {"seg": 1, "offsets": 3})
+        (data_fm,) = _vmap.batch_first("sorted_segment_sum", in_dims[:1], (data_fm,))
+        return SortedSegmentSum.apply(data_fm, seg, num_segments, offsets), 0
+
 
 class SortedTake(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x_fm, seg, offsets):
+    def forward(x_fm, seg, offsets):
+        if x_fm.dim() not in (2, 3):
+            raise ValueError(f"sorted_take: x has shape {tuple(x_fm.shape)}, expected ([K,] F, S)")
+        return x_fm.index_select(-1, seg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x_fm, seg, offsets = inputs
         ctx.save_for_backward(seg, offsets)
-        ctx.num_segments = x_fm.shape[1]
-        return x_fm.index_select(1, seg)
+        ctx.num_segments = x_fm.shape[-1]
 
     @staticmethod
     def backward(ctx, g):
         seg, offsets = ctx.saved_tensors
         return SortedSegmentSum.apply(g, seg, ctx.num_segments, offsets), None, None
 
+    @staticmethod
+    def vmap(info, in_dims, x_fm, seg, offsets):
+        _vmap.shared_index("sorted_take", in_dims, {"seg": 1, "offsets": 2})
+        (x_fm,) = _vmap.batch_first("sorted_take", in_dims[:1], (x_fm,))
+        return SortedTake.apply(x_fm, seg, offsets), 0
+
 
 def sorted_segment_sum_fm(data_fm: torch.Tensor, seg: torch.Tensor, num_segments: int,
                           offsets: torch.Tensor | None = None) -> torch.Tensor:
-    """out[:, s] = sum_{m: seg[m]=s} data_fm[:, m]: (F, M), sorted int32 (M,)
-    in [0, num_segments) -> (F, num_segments). ``offsets``: seg's
+    """out[..., s] = sum_{m: seg[m]=s} data_fm[..., m]: ([K,] F, M), sorted
+    int32 (M,) in [0, num_segments) -> ([K,] F, num_segments).
+    ``offsets``: seg's
     :func:`sorted_segment_offsets`, if the caller has them."""
     return SortedSegmentSum.apply(data_fm, seg, num_segments, offsets)
 

@@ -27,6 +27,10 @@ there is no fallback. The two ops are each other's transpose, so each
 one's VJP is the other Function (with the same owners) and
 ``create_graph=True`` works to any order.
 
+Under ``torch.func`` the Functions take their values with a leading member
+axis, (K, F, ·), which folds into the rows: one launch for every member
+(``ops._vmap``).
+
 ``LAUNCHES`` counts the kernel launches of each op (CUDA path only).
 """
 
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from torch_m3gnet_tpu_torch.ops import _cuda
+from torch_m3gnet_tpu_torch.ops import _cuda, _vmap
 from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
 
 LAUNCHES = {"windowed_take_fm": 0, "windowed_scatter_fm": 0}
@@ -58,8 +62,9 @@ def scatter_fm_plain(vals_fm: torch.Tensor, idx: torch.Tensor, num_edges: int) -
 def _check(name, label, x, idx, cols=None, owners=()):
     if idx.dim() != 1:
         raise ValueError(f"{name}: idx must be 1-D, got shape {tuple(idx.shape)}")
-    if x.dim() != 2 or (cols is not None and x.shape[1] != cols):
-        raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected (F, {cols or 'E'})")
+    if x.dim() not in (2, 3) or (cols is not None and x.shape[-1] != cols):
+        raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, "
+                         f"expected ([K,] F, {cols or 'E'})")
     return _cuda.is_cuda(name, [(label, x)], [("idx", idx), *owners])
 
 
@@ -76,44 +81,54 @@ def _check_owners(name, owners, num_idx, num_edges):
     return order, offsets
 
 
+# The member axis folds into the rows: both ops are row-parallel, the index shared.
+
+
 def _take_forward(data_fm, idx):
-    if not _check("windowed_take_fm", "data", data_fm, idx):
-        return take_fm_plain(data_fm, idx)
-    (f, e), t = data_fm.shape, idx.shape[0]
-    out = torch.empty((f, t), dtype=torch.float32, device=data_fm.device)
+    cuda = _check("windowed_take_fm", "data", data_fm, idx)
+    lead, (f, e), t = data_fm.shape[:-2], data_fm.shape[-2:], idx.shape[0]
+    rows = data_fm.reshape(-1, e)
+    if not cuda:
+        return take_fm_plain(rows, idx).reshape(*lead, f, t)
+    out = torch.empty((*lead, f, t), dtype=torch.float32, device=data_fm.device)
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
-    data_fm = data_fm.contiguous()
+    rows = rows.contiguous()
     _cuda.launch(LAUNCHES, "windowed_take_fm", "m3g_windowed_take", out.device,
-                 data_fm.data_ptr(), idx.data_ptr(), out.data_ptr(), f, e, t)
+                 rows.data_ptr(), idx.data_ptr(), out.data_ptr(), rows.shape[0], e, t)
     return out
 
 
 def _scatter_forward(vals_fm, idx, num_edges, order, offsets):
     name = "windowed_scatter_fm"
     owners = [(label, x) for label, x in (("order", order), ("offsets", offsets)) if x is not None]
-    if not _check(name, "vals", vals_fm, idx, idx.shape[0], owners):
-        return scatter_fm_plain(vals_fm, idx, num_edges)
-    f, t = vals_fm.shape
-    if t == 0 or f * num_edges == 0:  # nothing to add
-        return torch.zeros((f, num_edges), dtype=torch.float32, device=vals_fm.device)
+    cuda = _check(name, "vals", vals_fm, idx, idx.shape[0], owners)
+    lead, (f, t) = vals_fm.shape[:-2], vals_fm.shape[-2:]
+    rows = vals_fm.reshape(-1, t)
+    if not cuda:
+        return scatter_fm_plain(rows, idx, num_edges).reshape(*lead, f, num_edges)
+    if t == 0 or rows.shape[0] * num_edges == 0:  # nothing to add
+        return torch.zeros((*lead, f, num_edges), dtype=torch.float32, device=vals_fm.device)
     if offsets is None:  # no owners given: the stable order of any idx
         order, offsets = triplet_e2_order(idx, num_edges)
-    out = torch.empty((f, num_edges), dtype=torch.float32, device=vals_fm.device)
-    vals_fm = vals_fm.contiguous()
-    _cuda.launch(LAUNCHES, name, "m3g_windowed_scatter", out.device, vals_fm.data_ptr(),
+    out = torch.empty((*lead, f, num_edges), dtype=torch.float32, device=vals_fm.device)
+    rows = rows.contiguous()
+    _cuda.launch(LAUNCHES, name, "m3g_windowed_scatter", out.device, rows.data_ptr(),
                  None if order is None else order.data_ptr(), offsets.data_ptr(),
-                 out.data_ptr(), f, num_edges, t)
+                 out.data_ptr(), rows.shape[0], num_edges, t)
     return out
 
 
 class WindowedTake(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data_fm, idx, order, offsets):
-        out = _take_forward(data_fm, idx)  # checks the shapes first
+    def forward(data_fm, idx, order, offsets):
+        return _take_forward(data_fm, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        data_fm, idx, order, offsets = inputs
         ctx.save_for_backward(idx, order, offsets)
-        ctx.num_edges = data_fm.shape[1]
-        return out
+        ctx.num_edges = data_fm.shape[-1]
 
     @staticmethod
     def backward(ctx, g):
@@ -121,18 +136,34 @@ class WindowedTake(torch.autograd.Function):
         owners = None if offsets is None else (order, offsets)
         return windowed_scatter_fm(g, idx, ctx.num_edges, owners), None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, data_fm, idx, order, offsets):
+        _vmap.shared_index("windowed_take_fm", in_dims, {"idx": 1, "order": 2, "offsets": 3})
+        (data_fm,) = _vmap.batch_first("windowed_take_fm", in_dims[:1], (data_fm,))
+        return WindowedTake.apply(data_fm, idx, order, offsets), 0
+
 
 class WindowedScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vals_fm, idx, num_edges, order, offsets):
-        ctx.save_for_backward(idx, order, offsets)
+    def forward(vals_fm, idx, num_edges, order, offsets):
         return _scatter_forward(vals_fm, idx, num_edges, order, offsets)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx, _, order, offsets = inputs
+        ctx.save_for_backward(idx, order, offsets)
 
     @staticmethod
     def backward(ctx, g):
         idx, order, offsets = ctx.saved_tensors
         owners = None if offsets is None else (order, offsets)
         return windowed_take_fm(g, idx, owners), None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, vals_fm, idx, num_edges, order, offsets):
+        _vmap.shared_index("windowed_scatter_fm", in_dims, {"idx": 1, "order": 3, "offsets": 4})
+        (vals_fm,) = _vmap.batch_first("windowed_scatter_fm", in_dims[:1], (vals_fm,))
+        return WindowedScatter.apply(vals_fm, idx, num_edges, order, offsets), 0
 
 
 def windowed_take_fm(data_fm: torch.Tensor, idx: torch.Tensor, owners=None) -> torch.Tensor:

@@ -2,13 +2,21 @@
 
 Counterpart of ``torch_m3gnet_tpu.simulate.elastic``: elastic constants and
 phonons as EXACT second derivatives of the potential's energy. JAX takes
-``jax.hessian``; here each Hessian is nested ``torch.autograd.grad``: one
-gradient with ``create_graph=True``, then one gradient of each of its
-entries (6 rows for the strain Hessian, 3N for the force constants). The
+``jax.hessian``, which maps the gradient's derivative over every row at
+once; here each Hessian is the VJP of ``torch.func.grad`` of the energy,
+mapped by ``torch.func.vmap`` over the rows of an identity: a batched
+backward (6 rows for the strain Hessian, 3N for the force constants), in
+chunks of rows sized to a memory budget (:func:`hessian_chunk`). The
 port's custom ops are ``autograd.Function``s whose backward passes are
-built from Functions again, so the second derivative runs through them: on
-the card the factorized stage's kernels (B1-B3) and the sorted segment sum
-(B8), as the training step's double backward does.
+built from Functions again, each with a ``vmap`` rule, so the batched
+second derivative runs through them once for all rows: on the card the
+factorized stage's kernels (B1-B3 on their member axis, the saved primals
+shared at stride 0) and the sorted segment sum (B8, the rows folded).
+(``torch.autograd.grad(..., is_grads_batched=True)`` would not do: it maps
+with torch's older ``_vmap_internals``, which knows no Function's vmap rule
+and hands the kernels' forward a batched tensor with no storage.) The
+energy runs without ``remat_triplets``' checkpoint, which ``torch.func``
+refuses; remat changes no value.
 
 Conventions:
 - strain: lattice and positions deform affinely, x -> x @ (1 + eps), with
@@ -45,24 +53,46 @@ def _energy_fn(potential, batch):
 
     def energy(positions, lattice):
         g = graph.replace(positions=positions, lattice=lattice)
-        total, _ = model(g, edge_vectors_fm(g, positions, lattice))
+        total, _ = model(g, edge_vectors_fm(g, positions, lattice), remat=False)
         return total.sum()
 
     return graph, energy
 
 
-def _hessian(fn, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
-    """d^2 fn / dx dx[:rows] as (rows, *x.shape): one gradient that keeps its
-    graph, then the gradient of each of its first ``rows`` entries (all of
-    them by default)."""
-    x = x.detach().requires_grad_(True)
-    with torch.enable_grad():
-        (grad,) = torch.autograd.grad(fn(x), x, create_graph=True)
-        flat = grad.reshape(-1)
-        rows = flat.numel() if rows is None else rows
-        return torch.stack([
-            torch.autograd.grad(flat[i], x, retain_graph=i < rows - 1)[0] for i in range(rows)
-        ])
+# The rows of a Hessian go through the batched backward in chunks: every
+# row carries its own copy of the backward pass's tensors, about
+# HESSIAN_ROW_FLOATS floats a row for each padded edge, feature unit and
+# block, so a chunk takes as many rows as fit in HESSIAN_CHUNK_BYTES (at
+# least one). On an H100 the default model at f32 read 25.3 such floats a
+# row (500 atoms, passes of 20 rows peaking at 8.17 GB; chip_smoke.py
+# phase 8).
+HESSIAN_ROW_FLOATS = 26
+HESSIAN_CHUNK_BYTES = 8 << 30
+
+
+def hessian_chunk(potential, num_edges: int) -> int:
+    """Rows of one batched backward for a graph of ``num_edges`` (padded)
+    edges: ``HESSIAN_CHUNK_BYTES`` over the estimated bytes of one row."""
+    model = potential.model
+    kernel = model.edge_init.kernel  # (n_max, width)
+    row = HESSIAN_ROW_FLOATS * num_edges * kernel.shape[-1] * model.num_blocks
+    row *= kernel.element_size()
+    return max(1, HESSIAN_CHUNK_BYTES // row)
+
+
+def _hessian(fn, x: torch.Tensor, rows: int | None = None,
+             chunk: int | None = None) -> torch.Tensor:
+    """d^2 fn / dx dx[:rows] as (rows, *x.shape): the VJP of the gradient,
+    vmapped over the first ``rows`` rows of an identity (all of them by
+    default), as ``jax.hessian`` maps its rows, ``chunk`` rows at a time
+    (all at once by default)."""
+    x = x.detach()
+    rows = x.numel() if rows is None else rows
+    _, grad_vjp = torch.func.vjp(torch.func.grad(fn), x)
+    eye = torch.eye(rows, x.numel(), dtype=x.dtype, device=x.device).reshape(rows, *x.shape)
+    # create_graph=False: a chunk's backward keeps no graph of its own
+    (hess,) = torch.func.vmap(lambda v: grad_vjp(v, create_graph=False), chunk_size=chunk)(eye)
+    return hess
 
 
 def voigt_strain_matrix(eps6: torch.Tensor) -> torch.Tensor:
@@ -90,7 +120,8 @@ def elastic_tensor(potential, batch, gpa: bool = True) -> np.ndarray:
         deform = torch.eye(3, dtype=pos0.dtype, device=pos0.device) + voigt_strain_matrix(eps6)
         return energy(pos0 @ deform, lat0 @ deform)
 
-    hess = _hessian(e_of_eps, pos0.new_zeros(6))
+    hess = _hessian(e_of_eps, pos0.new_zeros(6),
+                    chunk=hessian_chunk(potential, graph.edge_src.shape[0]))
     lat = torch.as_tensor(batch.lattice).detach().cpu().double().numpy()
     c = hess.detach().cpu().double().numpy() / abs(np.linalg.det(lat[0]))
     c = 0.5 * (c + c.T)
@@ -116,7 +147,8 @@ def force_constants(potential, batch) -> np.ndarray:
         raise ValueError("force_constants expects a single-graph batch")
     graph, energy = _energy_fn(potential, batch)
     n = int(graph.n_node[0])
-    hess = _hessian(lambda p: energy(p, graph.lattice), graph.positions, rows=3 * n)
+    hess = _hessian(lambda p: energy(p, graph.lattice), graph.positions, rows=3 * n,
+                    chunk=hessian_chunk(potential, graph.edge_src.shape[0]))
     return hess[:, :n].detach().cpu().double().numpy().reshape(n, 3, n, 3)
 
 
