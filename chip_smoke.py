@@ -32,14 +32,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    equal to the plain versions (dyadic data, exact sums), two calls bitwise
    equal; then each kernel Function's ``torch.func.vmap`` rule at K = 3
    members (``check_member_rules``), bitwise equal to 3 single calls and
-   with one launch per call (B4/B5: one per member): at the bench shapes
-   (B1-B3 with the first operand shared at stride 0, the second shared, and
-   both batched; B4/B5 with the basis shared; B6/B7 by e1 and e2; B8 at
-   its four sorted sums) and on every case of ``SORTED_CASES``; then
-   ``check_grid_slices``: B1-B3 with 65,540 members, B7 with 4 x 65,540
-   rows and B8 with 70,400 rows (short runs and long ones), past the
-   65,535 blocks of a grid's y axis, against their plain versions, the
-   members at each slice bound bitwise their own calls;
+   with one launch per call: at the bench shapes (B1-B5 at every pattern
+   of shared, at stride 0, and batched float operands: 3 for B1-B4, 7 for
+   B5; B6/B7 by e1 and e2; B8 at its four sorted sums) and on every case
+   of ``SORTED_CASES``; then ``check_grid_slices``: B1-B5 with 65,540
+   members, B7 with 4 x 65,540 rows and B8 with 70,400 rows (short runs
+   and long ones), past the 65,535 blocks of a grid's y axis, against
+   their plain versions, the members at each slice bound bitwise their own
+   calls;
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -136,8 +136,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    readout's output kernel off by 1e-3 must fail); a committee of three
    (the checkpoint, seeds 1 and 2) on the bench batch, one
    ``torch.func.vmap`` over the members, in the factorized and the fused
-   mode: launches exactly one evaluation's (fused: B4/B5 three times
-   one's), mean and std within ``ENSEMBLE_TOL`` of three single
+   mode: launches exactly one evaluation's in either mode, mean and std
+   within ``ENSEMBLE_TOL`` of three single
    evaluations, one member's std exactly 0, its ms against the three
    evaluations' and its peak GB; ``relax`` (FIRE with the cell,
    8 cells, 20 steps) and ``md`` (NVE, 8 cells, 5 steps) against
@@ -207,6 +207,7 @@ line and the card's ``nvidia-smi`` line come just before it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -845,6 +846,12 @@ def check_sorted_segment(gbatch, masked: bool = False) -> float:
 MEMBERS = 3
 
 
+def member_patterns(n: int) -> list[tuple]:
+    """Every in_dims of ``n`` float operands with at least one batched: each
+    shared (None, stride 0 on a member axis) or batched in front (0)."""
+    return [p for p in itertools.product((None, 0), repeat=n) if 0 in p]
+
+
 def member_operands(shapes, device, seed: int, batched):
     """Seeded standard normal f32 operands: (MEMBERS, *shape) where
     ``batched``, else (*shape)."""
@@ -879,11 +886,6 @@ def vmapped_vs_members(label, fn, operands, in_dims, launches: dict) -> None:
         if not torch.equal(g, want):
             raise AssertionError(f"{label} (output {part + 1}): the vmapped call differs from "
                                  f"{MEMBERS} single calls by {float((g - want).abs().max()):.3e}")
-
-
-# in_dims of B1-B3's two operands: the first shared (stride 0), the second
-# shared, both batched.
-STAGE_PATTERNS = ((None, 0), (0, None), (0, 0))
 
 
 def member_specs(gbatch, cfg) -> dict:
@@ -922,11 +924,11 @@ def member_specs(gbatch, cfg) -> dict:
                       k * (a_b + 4 * (ln + m) * e) + src_b, k * 2 * mn * e),
         "fused_triplet_gate_sum": (
             lambda b, g: ft.fused_triplet_gate_sum(b, g, e1, e2, e, order),
-            [(ln, t), (ln, e)], (None, 0), {"fused_triplet_gate_sum": k},
+            [(ln, t), (ln, e)], (None, 0), one("fused_triplet_gate_sum"),
             4 * ln * t + 2 * idx_b + k * 4 * 2 * ln * e, k * 2 * ln * t),
         "backward_pair": (
             lambda b, g, c: ft.backward_pair(b, g, c, e1, e2, e, order),
-            [(ln, t), (ln, e), (ln, e)], (None, 0, 0), {"backward_pair": k},
+            [(ln, t), (ln, e), (ln, e)], (None, 0, 0), one("backward_pair"),
             4 * ln * t + 2 * idx_b + k * 4 * (ln * t + 3 * ln * e), k * 3 * ln * t),
         "windowed_take_fm": (
             lambda d: (wt.windowed_take_fm(d, e1, e1_owners), wt.windowed_take_fm(d, e2, order)),
@@ -947,12 +949,13 @@ def member_specs(gbatch, cfg) -> dict:
 def check_member_rules(gbatch, cfg) -> None:
     """Each kernel Function's vmap rule on the card at K = MEMBERS, bitwise
     against MEMBERS single calls (``vmapped_vs_members``), with the launches
-    of one vmapped call exactly one (B4/B5: one per member; B6/B7: one for
-    each of the e1 and the e2 call): at the bench shapes (B1-B3 with each
-    ``STAGE_PATTERNS``, B8 at its four sorted sums) and on every case of
-    ``SORTED_CASES`` (B1-B3 at (l_max, n_max) = (1, 1), (3, 3), (4, 4) with
-    each pattern, B4/B5 at LN = 1, 9, 16, B7 by the three indices of
-    ``check_sorted_index_cases``, B8 by the sorted ids, F = 4)."""
+    of one vmapped call exactly one (B6/B7: one for each of the e1 and the
+    e2 call): at the bench shapes (each kernel at every ``member_patterns``
+    of its float operands: B1-B4 3, B5 7; B8 also at its four sorted sums)
+    and on every case of ``SORTED_CASES`` (B1-B3 at (l_max, n_max) = (1,
+    1), (3, 3), (4, 4) and B4/B5 at LN = 1, 9, 16, each at every pattern;
+    B7 by the three indices of ``check_sorted_index_cases``, B8 by the
+    sorted ids, F = 4)."""
     import torch
 
     from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
@@ -963,11 +966,9 @@ def check_member_rules(gbatch, cfg) -> None:
     dev = gbatch.edge_src.device
     t0 = time.perf_counter()
     calls = 0
-    for i, (name, (fn, shapes, dims, launches, _, _)) in enumerate(
+    for i, (name, (fn, shapes, _, launches, _, _)) in enumerate(
             member_specs(gbatch, cfg).items()):
-        patterns = STAGE_PATTERNS if len(shapes) == 2 and name in (
-            "q_scatter", "r1_gather", "r2_gather") else (dims,)
-        for pattern in patterns:
+        for pattern in member_patterns(len(shapes)):
             ops = member_operands(shapes, dev, 90 + i, [d is not None for d in pattern])
             vmapped_vs_members(f"{name} in_dims {pattern}", fn, ops, pattern, launches)
             calls += 1
@@ -978,7 +979,7 @@ def check_member_rules(gbatch, cfg) -> None:
                            {"sorted_segment_sum": 1})
         calls += 1
     print(f"  bench shapes: {calls} vmapped calls at K = {MEMBERS}, each bitwise equal to "
-          f"{MEMBERS} single calls, with one launch (B4/B5: {MEMBERS})")
+          f"{MEMBERS} single calls, with one launch")
 
     calls = 0
     rng = np.random.default_rng(110)
@@ -999,7 +1000,7 @@ def check_member_rules(gbatch, cfg) -> None:
                     ("r2_gather", a, gm, lambda x, y: fs.r2_gather(x, y, tsrc, l_max, n_max))):
                 batched = members_of(first.shape, second.shape)
                 shared = [torch.as_tensor(x, device=dev) for x in (first, second)]
-                for pattern in STAGE_PATTERNS:
+                for pattern in member_patterns(2):
                     ops = [s if d is None else b for b, s, d in zip(batched, shared, pattern)]
                     vmapped_vs_members(f"{op} {case} ({l_max}, {n_max}) in_dims {pattern}", fn,
                                        ops, pattern, {op: 1})
@@ -1008,15 +1009,20 @@ def check_member_rules(gbatch, cfg) -> None:
             basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
             te1, te2 = (torch.as_tensor(x, device=dev) for x in (e1, e2))
             order = ft.triplet_e2_order(te2, e)
-            tb = torch.as_tensor(basis, device=dev)
-            tgate, tg = members_of(gate.shape, gate.shape)
-            vmapped_vs_members(f"fused_triplet_gate_sum {case} LN = {ln}",
-                               lambda b, g: ft.fused_triplet_gate_sum(b, g, te1, te2, e, order),
-                               [tb, tgate], (None, 0), {"fused_triplet_gate_sum": MEMBERS})
-            vmapped_vs_members(f"backward_pair {case} LN = {ln}",
-                               lambda b, g, c: ft.backward_pair(b, g, c, te1, te2, e, order),
-                               [tb, tgate, tg], (None, 0, 0), {"backward_pair": MEMBERS})
-            calls += 2
+            g = dyadic(rng, gate.shape)
+            batched = members_of(basis.shape, gate.shape, gate.shape)
+            shared = [torch.as_tensor(x, device=dev) for x in (basis, gate, g)]
+            for op, fn in (
+                    ("fused_triplet_gate_sum",
+                     lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, order)),
+                    ("backward_pair",
+                     lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, order))):
+                n = 2 if op == "fused_triplet_gate_sum" else 3
+                for pattern in member_patterns(n):
+                    ops = [s if d is None else b for b, s, d in zip(batched, shared, pattern)]
+                    vmapped_vs_members(f"{op} {case} LN = {ln} in_dims {pattern}", fn, ops,
+                                       pattern, {op: 1})
+                    calls += 1
         vals, e1, e2, e = scatter_case_inputs(case)
         te1, te2 = (torch.as_tensor(x, device=dev) for x in (e1, e2))
         (tv,) = members_of(vals.shape)
@@ -1042,7 +1048,7 @@ def check_member_rules(gbatch, cfg) -> None:
           f"{MEMBERS} single calls ({time.perf_counter() - t0:.1f} s in all)")
 
 
-# Past the gridDim.y limit of 65,535: B1-B3 with more members than that
+# Past the gridDim.y limit of 65,535: B1-B5 with more members than that
 # (their grid's y is the member), B7 with more than 4 x 65,535 rows and B8
 # with more than 65,535 row blocks (its tiled sum, and its block sum for
 # long runs) launch in slices. GRID_MEMBERS members put each past it.
@@ -1056,7 +1062,9 @@ def check_grid_slices() -> None:
     the output's largest magnitude), and the members on both sides of each
     slice bound bitwise equal to calls of those members alone. B1-B3 at
     (l_max, n_max) = (1, 1) on 64 edges of 8 nodes (GRID_MEMBERS members);
-    B7 by a sorted and an unsorted index, 4 rows a member (GRID_MEMBERS);
+    B4 and B5 at LN = 1 on 64 triplets of 16 edges (GRID_MEMBERS members;
+    B4 with the basis shared, B5 with the gate shared); B7 by a sorted and
+    an unsorted index, 4 rows a member (GRID_MEMBERS);
     B8 on 64 rows a member (1,100 members, 70,400 rows) with short runs
     (the tiled sum, one row a block) and long ones (the block sum)."""
     import torch
@@ -1073,23 +1081,26 @@ def check_grid_slices() -> None:
         return torch.randn(shape, generator=gen, device="cuda")
 
     def held(label, fn, operands, in_dims, want, per_slice):
-        """vmap(fn) against ``want`` and, at members on either side of
-        each slice bound (every ``per_slice`` members), single calls."""
+        """vmap(fn) against ``want`` (a tensor, or a tuple for each output)
+        and, at members on either side of each slice bound (every
+        ``per_slice`` members), single calls."""
+        as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
         with torch.no_grad():
             reset_launches()
-            got = torch.func.vmap(fn, in_dims=in_dims)(*operands)
+            got = as_tuple(torch.func.vmap(fn, in_dims=in_dims)(*operands))
             torch.cuda.synchronize()
             launched = sum(all_launches().values())
-            k = got.shape[0]
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
+            want = as_tuple(want)
+            k = got[0].shape[0]
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            scale = max(float(w.abs().max()) for w in want)
             if launched != 1 or not err <= 1e-5 * scale:
                 raise AssertionError(f"{label}: {launched} launches, {err:.3e} from the plain "
                                      f"version (scale {scale:.3e})")
             bounds = range(per_slice, k, per_slice)
             for j in sorted({0, k - 1, *bounds, *(b - 1 for b in bounds)}):
-                one = fn(*(x if d is None else x[j] for x, d in zip(operands, in_dims)))
-                if not torch.equal(got[j], one):
+                one = as_tuple(fn(*(x if d is None else x[j] for x, d in zip(operands, in_dims))))
+                if not all(torch.equal(g[j], o) for g, o in zip(got, one)):
                     raise AssertionError(f"{label}: member {j} differs from its own call")
         print(f"  {label}: {k} members in one call, {err:.3e} from the plain version; members "
               f"at the slice bounds bitwise their own calls")
@@ -1109,6 +1120,18 @@ def check_grid_slices() -> None:
     t, ne = 64, 16
     e1 = torch.sort(torch.randint(0, ne, (t,), generator=gen, device="cuda"))[0].to(torch.int32)
     e2 = torch.randint(0, ne, (t,), generator=gen, device="cuda", dtype=torch.int32)
+    l1, l2, order = e1.long(), e2.long(), ft.triplet_e2_order(e2, ne)
+    basis, basis_k, gate, gate_k, g_k = (
+        normal(1, t), normal(k, 1, t), normal(1, ne), normal(k, 1, ne), normal(k, 1, ne))
+    fwd_want = torch.zeros(k, 1, ne, device="cuda").index_add_(2, l1, basis * gate_k[:, :, l2])
+    pair_want = (g_k[:, :, l1] * gate[:, l2],
+                 torch.zeros(k, 1, ne, device="cuda").index_add_(2, l2, g_k[:, :, l1] * basis_k))
+    held("fused_triplet_gate_sum, gate batched",
+         lambda b, q: ft.fused_triplet_gate_sum(b, q, e1, e2, ne, order), [basis, gate_k],
+         (None, 0), fwd_want, GRID_Y)
+    held("backward_pair, basis and g batched",
+         lambda b, q, c: ft.backward_pair(b, q, c, e1, e2, ne, order), [basis_k, gate, g_k],
+         (0, None, 0), pair_want, GRID_Y)
     vals = normal(k, 4, t)
     for label, idx, owners in (("sorted", e1, (None, ss.sorted_segment_offsets(e1, ne))),
                                ("unsorted", e2, ft.triplet_e2_order(e2, ne))):
@@ -1539,7 +1562,7 @@ def time_members(name: str, member: dict, flush, bw: float) -> dict:
     K-member bound with a shared operand read once. Device time of every
     kernel a call launches (``kernel_parts`` with its copies, clean flush,
     mean of 10), so that the host's gaps between the launches of one call
-    (B4/B5 launch per member; B6/B7 twice) stay out; ``parts_us`` splits
+    (B6/B7 launch twice) stay out; ``parts_us`` splits
     the K-member call by kernel; ``event_us``, CUDA events around the
     K-member call (``time_device``, clean flush, median of 30), the
     cross-check for a call of one launch (it adds the launch's ~4 us)."""
@@ -2902,10 +2925,9 @@ ENSEMBLE_TOL = 1e-6
 def check_ensemble(name, smi, cfg, ckpt, gbatch, nb) -> dict:
     """K = MEMBERS members (the checkpoint and seeded weights 1, 2) on
     the bench batch, one ``torch.func.vmap`` over the members, in the
-    factorized and the fused mode: launches exactly one evaluation's in the
-    factorized mode (B1-B3 on their member axis, B8 with the members' rows
-    folded), and in the fused mode B4/B5 K x one evaluation's and the rest
-    one evaluation's; mean and std within ENSEMBLE_TOL of the largest
+    factorized and the fused mode: launches exactly one evaluation's in
+    either mode (B1-B5 on their member axis, B6-B8 with the members' rows
+    folded); mean and std within ENSEMBLE_TOL of the largest
     magnitude of each field in K single evaluations (K potentials, each
     loaded with one member) of theirs; a one-member committee has std exactly 0. Then
     each committee's time against those K single evaluations (host clock to
@@ -2948,9 +2970,7 @@ def check_ensemble(name, smi, cfg, ckpt, gbatch, nb) -> dict:
                                     energy_scale=meta["energy_scale"], device="cuda"))
             pots[-1].load_state_dict(sd)
         ens = EnsemblePotential(pots[0])
-        one = expected_launches(mode, nb, False)
-        expected = {k: v * (MEMBERS if k in ("fused_triplet_gate_sum", "backward_pair") else 1)
-                    for k, v in one.items()}
+        expected = expected_launches(mode, nb, False)
         reset_launches()
         mean, std = ens.apply(stacked, gbatch)
         torch.cuda.synchronize()

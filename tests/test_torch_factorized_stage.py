@@ -6,6 +6,8 @@ On the CPU the port's autograd Functions run the plain versions of the CUDA
 kernels; chip_smoke.py holds the kernels against those on the card.
 """
 
+import ctypes
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -84,7 +86,39 @@ def _stage(q, r1, src, n):
     return lambda s, g: r1(q(s, g, src, n, L_MAX, N_MAX), s, src, L_MAX, N_MAX)
 
 
-def test_stage_vjp_matches_jax_grad(interpret):
+def _f64_failure_record(request, got, want, tensors, port_terms, jax_terms, again) -> str:
+    """What a failure of the f64 scalar below needs recorded, since it has
+    failed once in a full parallel run and never alone: the state that could
+    carry between the tests of one worker (default dtype, thread counts,
+    deterministic mode, the C rounding mode, the tests this worker ran
+    before), the dtype of every tensor of the stage, and the sum's terms
+    sin(P - gm) compared one by one with JAX's, and with the port's own
+    terms recomputed in the same process."""
+    reporter = request.config.pluginmanager.get_plugin("terminalreporter")
+    earlier = [] if reporter is None else list(dict.fromkeys(
+        r.nodeid for reports in reporter.stats.values() for r in reports
+        if hasattr(r, "when") and r.nodeid != request.node.nodeid))  # run, not deselected
+    diff = np.abs(port_terms - jax_terms)
+    worst = np.argsort(diff, axis=None)[::-1][:5]
+    rows = [f"{tuple(map(int, np.unravel_index(i, diff.shape)))}: port "
+            f"{float(port_terms.flat[i])!r} jax {float(jax_terms.flat[i])!r}" for i in worst]
+    return "\n".join([
+        f"f64 scalar: port {got!r}, JAX {want!r} (rel {abs(got - want) / abs(want):.3e})",
+        f"worker {os.environ.get('PYTEST_XDIST_WORKER')}, default dtype "
+        f"{torch.get_default_dtype()}, threads {torch.get_num_threads()}, interop "
+        f"{torch.get_num_interop_threads()}, deterministic "
+        f"{torch.are_deterministic_algorithms_enabled()}, C rounding mode "
+        f"{ctypes.CDLL(None).fegetround()}",
+        "dtypes: " + ", ".join(f"{k} {v.dtype}" for k, v in tensors.items()),
+        f"terms: {int((diff > 0).sum())} of {diff.size} differ from JAX's, largest "
+        f"{float(diff.max()):.3e}, sum of differences {float((port_terms - jax_terms).sum()):.3e}; "
+        f"recomputed now, the port's terms move by {float(np.abs(again - port_terms).max()):.3e}",
+        *rows,
+        f"{len(earlier)} earlier tests in this worker: {earlier}",
+    ])
+
+
+def test_stage_vjp_matches_jax_grad(interpret, request):
     """The composed stage P = R1(Q(sh, gm), sh) and its VJP, two ways.
 
     float64: the scalar sum(sin(P - gm)) and its gradients with respect to
@@ -92,6 +126,9 @@ def test_stage_vjp_matches_jax_grad(interpret):
     (q_scatter_xla, r1_gather_xla) at x64: rtol 1e-12 on the value, and on
     each gradient atol 1e-12 of its largest magnitude (5,400 terms summed
     in other orders leave ~1e-14 relative).
+
+    On a failure of the f64 scalar the test records the worker's state and
+    the terms one by one (``_f64_failure_record``).
 
     float32, element by element, against the Pallas kernels in interpret
     mode: P, and the VJP of P for a standard-normal cotangent c. Every one
@@ -109,7 +146,10 @@ def test_stage_vjp_matches_jax_grad(interpret):
 
     # float64: the port's Functions against the XLA twins at x64
     tsh, tgm = (torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (sh, gm))
-    val = torch.sin(_stage(fs.q_scatter, fs.r1_gather, tsrc, n)(tsh, tgm) - tgm).sum()
+    stage = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)
+    p64 = stage(tsh, tgm)
+    terms = torch.sin(p64 - tgm)
+    val = terms.sum()
     got_g = torch.autograd.grad(val, (tsh, tgm))
     with jax.enable_x64(True):
         jstage = _stage(q_scatter_xla, lambda a_, s_, src_, l, nm: r1_gather_xla(
@@ -118,7 +158,15 @@ def test_stage_vjp_matches_jax_grad(interpret):
         args = (jnp.asarray(sh, jnp.float64), jnp.asarray(gm, jnp.float64))
         want = float(loss(*args))
         want_g = [np.asarray(w) for w in jax.grad(loss, argnums=(0, 1))(*args)]
-    assert float(val.detach()) == pytest.approx(want, rel=1e-12)
+        jax_terms = np.asarray(jnp.sin(jstage(*args) - args[1]))
+    if float(val.detach()) != pytest.approx(want, rel=1e-12):
+        with torch.no_grad():
+            a64 = fs.q_scatter(tsh, tgm, tsrc, n, L_MAX, N_MAX)
+            again = torch.sin(stage(tsh, tgm) - tgm).numpy()
+        pytest.fail(_f64_failure_record(
+            request, float(val.detach()), want,
+            {"sh": tsh, "gm": tgm, "A": a64, "P": p64, "terms": terms, "value": val},
+            terms.detach().numpy(), jax_terms, again))
     for got, w in zip(got_g, want_g):
         assert w.dtype == np.float64
         np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=1e-12 * np.abs(w).max())

@@ -10,6 +10,8 @@ padded tail), synthetic triplets whose tiles span many windows, and a
 hand-built padded tail.
 """
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +32,9 @@ from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
 TOL = dict(atol=1e-5, rtol=1e-6)
 
 
-def _indices(case):
-    """(e1, e2, E, triplet mask)."""
+def _indices(case, nodes=120):
+    """(e1, e2, E, triplet mask); ``nodes``: the synthetic case's first
+    nodes only."""
     if case == "real":
         rng = np.random.default_rng(0)
         base = JaxStructure.from_frac_coords(
@@ -47,7 +50,7 @@ def _indices(case):
                 np.asarray(b.triplet_mask, dtype=np.float32))
     if case == "synthetic":
         # all ordered pairs of distinct edges per node, degrees 1..64
-        degs = np.random.default_rng(3).integers(1, 65, 120)
+        degs = np.random.default_rng(3).integers(1, 65, 120)[:nodes]
         e1, e2, off = [], [], 0
         for d in degs:
             a, c = np.meshgrid(np.arange(off, off + d), np.arange(off, off + d), indexing="ij")
@@ -62,8 +65,8 @@ def _indices(case):
     return e1, e2, 100, np.concatenate([np.ones(240), np.zeros(700)]).astype(np.float32)
 
 
-def _inputs(case, ln=9, seed=0, dtype=np.float32):
-    e1, e2, e, mask = _indices(case)
+def _inputs(case, ln=9, seed=0, dtype=np.float32, nodes=120):
+    e1, e2, e, mask = _indices(case, nodes)
     rng = np.random.default_rng(seed)
     basis = (rng.standard_normal((ln, e1.shape[0])) * mask).astype(dtype)
     gate = rng.uniform(0, 1, (ln, e)).astype(dtype)
@@ -260,4 +263,80 @@ def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
         ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets[:3]))
     out = ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets))
     ft.backward_pair(b, gate, out, e1, e2, 3, (order, offsets))
+    assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}
+
+
+def _patterns(n):
+    """Every in_dims of ``n`` float operands with at least one batched: each
+    operand shared (None) or with the member axis in front (0)."""
+    return [p for p in itertools.product((None, 0), repeat=n) if any(d == 0 for d in p)]
+
+
+@pytest.mark.parametrize("op, case, in_dims", [
+    pytest.param(op, case, dims, id=f"{op}-{case}-{'-'.join(map(str, dims))}")
+    for op, n in (("fused_triplet_gate_sum", 2), ("backward_pair", 3))
+    for case in ("real", "synthetic", "padding-tail") for dims in _patterns(n)
+])
+def test_member_axis_matches_jax_vmap(interpret, op, case, in_dims):
+    """``torch.func.vmap`` of the port's op at K = 3 members against
+    ``jax.vmap`` of the Pallas kernel, which JAX runs as one ``pallas_call``
+    with a member grid axis (the committee's forward shares the basis, its
+    VJP the basis too, a Hessian's rows batch it): every pattern of shared
+    and batched float operands. The port's Function takes the members as one
+    (K, rows, cols) call: one launch on the card, the plain version per
+    member here, where nothing launches. The synthetic case keeps its first
+    16 nodes (14,462 triplets), so that interpret mode takes a few seconds
+    at K = 3. TOL as above."""
+    k = 3
+    basis, gate, g, e1, e2, e = zip(*(_inputs(case, seed=20 + i, nodes=16) for i in range(k)))
+    e1, e2, e = e1[0], e2[0], e[0]
+    floats = [np.stack(x) for x in ((basis, gate) if op == "fused_triplet_gate_sum"
+                                     else (basis, gate, g))]
+    floats = [x if d == 0 else x[0] for x, d in zip(floats, in_dims)]
+    je1, je2 = jnp.asarray(e1), jnp.asarray(e2)
+    te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
+    order = ft.triplet_e2_order(te2, e)
+    if op == "fused_triplet_gate_sum":
+        jfn = lambda b, q: jfused(b, q, je1, je2, e)  # noqa: E731
+        tfn = lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, order)  # noqa: E731
+    else:
+        jfn = lambda b, q, c: jpair(b, q, c, je1, je2, e)  # noqa: E731
+        tfn = lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, order)  # noqa: E731
+    want = jax.vmap(jfn, in_axes=in_dims)(*map(jnp.asarray, floats))
+    ft.reset_launch_counts()
+    got = torch.func.vmap(tfn, in_dims=in_dims)(*map(torch.as_tensor, floats))
+    assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}
+    want, got = (x if isinstance(x, tuple) else (x,) for x in (want, got))
+    for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and tuple(x.shape) == y.shape and y.shape[0] == k
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **TOL)
+
+
+def test_member_axis_mismatch_raises_and_launches_nothing_on_cpu():
+    """(K, LN, cols) operands go to the Function as one call; two member
+    counts, a member axis on an operand of the wrong shape, or a fourth
+    axis raise before anything runs."""
+    ft.reset_launch_counts()
+    e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
+    e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
+    order = ft.triplet_e2_order(e2, 3)
+    b, gate = torch.ones(2, 3), torch.ones(2, 3)
+    b3, gate3, gate4 = torch.ones(3, 2, 3), torch.ones(3, 2, 3), torch.ones(4, 2, 3)
+    with pytest.raises(ValueError, match="different member counts"):
+        ft.fused_triplet_gate_sum(b3, gate4, e1, e2, 3, order)
+    with pytest.raises(ValueError, match="different member counts"):
+        ft.backward_pair(b, gate3, gate4, e1, e2, 3, order)
+    with pytest.raises(ValueError, match="different member counts"):
+        ft.backward_pair(b3, gate, gate4, e1, e2, 3, order)
+    with pytest.raises(ValueError, match="gate_e has shape"):
+        ft.fused_triplet_gate_sum(b, torch.ones(3, 2, 4), e1, e2, 3, order)
+    with pytest.raises(ValueError, match="basis has shape"):
+        ft.backward_pair(torch.ones(3, 2, 2), gate3, gate3, e1, e2, 3, order)
+    with pytest.raises(ValueError, match="g has shape"):
+        ft.backward_pair(b3, gate3, torch.ones(3, 1, 3), e1, e2, 3, order)
+    with pytest.raises(ValueError, match=r"must be \(rows, cols\) or \(K, rows, cols\)"):
+        ft.fused_triplet_gate_sum(torch.ones(1, 3, 2, 3), gate3, e1, e2, 3, order)
+    out = ft.fused_triplet_gate_sum(b, gate3, e1, e2, 3, order)
+    d_basis, d_gate = ft.backward_pair(b, gate3, out, e1, e2, 3, order)
+    assert out.shape == (3, 2, 3) and d_basis.shape == (3, 2, 3) and d_gate.shape == (3, 2, 3)
     assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}

@@ -81,14 +81,42 @@
 // The TPU version's windowed one-hot MXU gathers and scatters, bf16 hi/lo
 // split, sequential grid and VMEM residency have no counterpart here.
 //
+// The member axis: a committee of K potentials (models/ensemble.py, one
+// torch.func.vmap over the members, as JAX's jax.vmap gives each
+// pallas_call a grid axis over the batch) calls each kernel once for all
+// K members. Each float operand comes with a member stride in floats, 0
+// where the members share it (the basis in the committee's forward), and
+// every output is K contiguous slabs: out and d_gate (K, LN, E), d_basis
+// (K, LN, T). The index is one for all members: the forward's offsets pass
+// runs once, and every member's d_gate reads the batch's one e2 order.
+// The member is the fast part of blockIdx.x (block b is member b % K of
+// tile b / K), so that the K members of one tile run together: the
+// forward's padded-edge tile first for every member, the backward's d_gate
+// blocks of every member before any d_basis block, and a shared basis
+// span read by the K members at about one time, while L2 holds it. More
+// than 65,535 members launch in slices. Each member is summed in the order
+// of a K = 1 call, so the K slabs equal K single calls bit for bit. K = 1
+// launches the kernels without the member arithmetic (kMembers false).
+// Where there are members, each base pointer goes through opaque(). On an
+// NVIDIA H100 80GB HBM3 (700 W), at the bench point, K = 3 with the basis
+// shared, device time beside 3 single calls' 96 / 128 us
+// (tools/fused_triplet_turns.py, in turns): this design, B4 57 us, B5
+// 119 us; without opaque(), B5 150 us (ptxas gave it 80 registers); the
+// member on a grid axis of its own (as factorized_stage.cu has it), B4 75
+// and B5 144 us, 152 without opaque(): the last member's d_gate blocks
+// started after the other members' d_basis blocks. Member arithmetic in
+// the K = 1 kernel cost B5 42.7 -> 55.7 us (46 with opaque()): ptxas then
+// kept fewer of its gathers in flight.
+//
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
 // given stream of the current device, allocates nothing (the forward takes
 // an (E + 1,) int32 scratch for the offsets, the backward the batch's e2
 // order), and returns cudaGetLastError()
-// (cudaErrorInvalidValue for an unsupported LN).
+// (cudaErrorInvalidValue for an unsupported LN or a member count below 1).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "segment_offsets.cuh"
@@ -100,23 +128,44 @@ constexpr int kFwdStage = 8192;   // 4-byte words staged per forward chunk (32 K
 constexpr int kPairEdges = 256;   // threads per block of the backward; d_gate owners a block
 constexpr int kPairStage = 8192;  // 4-byte words staged per d_gate chunk (32 KB)
 constexpr int kPairTrip = 4;      // triplets per thread of a d_basis block (one 16-byte quad)
+constexpr int kMaxMembers = 65535;  // members a launch: a larger count launches in slices
 
-// The forward after the offsets pass. Block b owns edges [e0, e0 + kFwdEdges)
-// with e0 counted from the last edge down, so that the block of the padded
+// p, hidden from the compiler's address arithmetic (an empty asm that may
+// change it), so that a member's base pointer is used as a kernel argument
+// is: the gathers' addresses are then formed as the K = 1 kernel forms them.
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm("" : "+l"(p));
+  return p;
+}
+
+// The forward after the offsets pass. Tile b owns edges [e0, e0 + kFwdEdges)
+// with e0 counted from the last edge down, so that the tile of the padded
 // edge (its long run) starts first and overlaps the rest. Shared memory
 // holds a chunk of the block's triplet span: e2 and the LN rows of basis,
-// each row then multiplied in place by the gathered gate row.
-template <int LN>
+// each row then multiplied in place by the gathered gate row. With
+// kMembers, block b is member b % members of tile b / members.
+template <int LN, bool kMembers>
 __global__ void __launch_bounds__(kFwdEdges)
 fused_triplet_gate_sum_kernel(const float* __restrict__ basis, const float* __restrict__ gate,
                               const int* __restrict__ offsets, const int* __restrict__ e2,
-                              float* __restrict__ out, int num_edges, int num_trip, bool vec) {
+                              float* __restrict__ out, int num_edges, int num_trip, bool vec,
+                              int members, long long basis_stride, long long gate_stride) {
   // Triplets per chunk: a multiple of 32, so that every staged row starts
   // 16-byte aligned.
   constexpr int kChunk = (kFwdStage / (LN + 1)) & ~31;
   __shared__ __align__(16) int k_s[kChunk];
   __shared__ __align__(16) float prod[LN * kChunk];
-  const int e0 = (gridDim.x - 1 - blockIdx.x) * kFwdEdges;
+  int tile = blockIdx.x, tiles = gridDim.x;
+  if (kMembers) {
+    const int m = tile % members;
+    tile /= members;
+    tiles /= members;
+    basis = opaque(basis + m * basis_stride);
+    gate = opaque(gate + m * gate_stride);
+    out = opaque(out + (size_t)m * LN * num_edges);
+  }
+  const int e0 = (tiles - 1 - tile) * kFwdEdges;
   const int e = e0 + threadIdx.x;
   const bool live = e < num_edges;
   const int span_begin = __ldg(offsets + e0);
@@ -183,22 +232,34 @@ fused_triplet_gate_sum_kernel(const float* __restrict__ basis, const float* __re
 
 // The backward: blocks [0, gate_blocks) own kPairEdges consecutive edges
 // of d_gate each; the blocks after them write d_basis, kPairTrip
-// consecutive triplets a thread.
-template <int LN>
+// consecutive triplets a thread. With kMembers, grid block b is block
+// b / members of member b % members.
+template <int LN, bool kMembers>
 __global__ void __launch_bounds__(kPairEdges)
 backward_pair_kernel(const float* __restrict__ basis, const float* __restrict__ gate,
                      const float* __restrict__ g, const int* __restrict__ e1,
                      const int* __restrict__ e2, const int* __restrict__ order,
                      const int* __restrict__ off2, float* __restrict__ d_basis,
                      float* __restrict__ d_gate, int num_edges, int num_trip, int gate_blocks,
-                     bool vec) {
+                     bool vec, int members, long long basis_stride, long long gate_stride,
+                     long long g_stride) {
   constexpr int kChunk = (kPairStage / (LN + 1)) & ~31;
   __shared__ __align__(16) int k_s[kChunk];
   __shared__ __align__(16) float prod[LN * kChunk];
+  int block = blockIdx.x;
+  if (kMembers) {
+    const int m = block % members;
+    block /= members;
+    basis = opaque(basis + m * basis_stride);
+    gate = opaque(gate + m * gate_stride);
+    g = opaque(g + m * g_stride);
+    d_basis = opaque(d_basis + (size_t)m * LN * num_trip);
+    d_gate = opaque(d_gate + (size_t)m * LN * num_edges);
+  }
 
-  if ((int)blockIdx.x >= gate_blocks) {
+  if (block >= gate_blocks) {
     // d_basis[:, t] = g[:, e1[t]] * gate[:, e2[t]]
-    const int t0 = ((blockIdx.x - gate_blocks) * kPairEdges + threadIdx.x) * kPairTrip;
+    const int t0 = ((block - gate_blocks) * kPairEdges + threadIdx.x) * kPairTrip;
     if (t0 >= num_trip) return;
     if (vec) {
       const int4 a = __ldg(reinterpret_cast<const int4*>(e1 + t0));
@@ -226,7 +287,7 @@ backward_pair_kernel(const float* __restrict__ basis, const float* __restrict__ 
 
   // d_gate[:, e] = sum over i in [off2[e], off2[e + 1]) of
   // g[:, e1[t]] * basis[:, t], t = order[i], in i order.
-  const int e0 = blockIdx.x * kPairEdges;
+  const int e0 = block * kPairEdges;
   const int e = e0 + threadIdx.x;
   const bool live = e < num_edges;
   const int span_begin = __ldg(off2 + e0);
@@ -294,31 +355,67 @@ backward_pair_kernel(const float* __restrict__ basis, const float* __restrict__ 
   }
 }
 
-template <int LN>
-void launch_fwd(const float* basis, const float* gate, const int* e1, const int* e2, int* offsets,
-                float* out, int num_edges, int num_trip, cudaStream_t stream) {
-  launch_segment_offsets(e1, offsets, num_trip, num_edges, stream);
-  const bool vec = num_trip % 4 == 0 && reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(e2) % 16 == 0;
-  const int grid = (num_edges + kFwdEdges - 1) / kFwdEdges;
-  fused_triplet_gate_sum_kernel<LN><<<grid, kFwdEdges, 0, stream>>>(basis, gate, offsets, e2, out,
-                                                                 num_edges, num_trip, vec);
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Members a launch of `blocks` blocks each: at most kMaxMembers, and a grid
+// of at most INT_MAX blocks.
+int members_per_launch(int blocks) {
+  const long long cap = INT_MAX / blocks;
+  return cap < kMaxMembers ? (int)cap : kMaxMembers;
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+template <int LN>
+void launch_fwd(const float* basis, const float* gate, const int* e1, const int* e2, int* offsets,
+                float* out, int num_edges, int num_trip, int members, long long basis_stride,
+                long long gate_stride, cudaStream_t stream) {
+  launch_segment_offsets(e1, offsets, num_trip, num_edges, stream);  // once for every member
+  // Every member's basis rows stay 16-byte aligned: the stride is a
+  // multiple of 4 (the gate is read a word at a time).
+  const bool vec =
+      num_trip % 4 == 0 && aligned16(basis) && aligned16(e2) && basis_stride % 4 == 0;
+  const int tiles = (num_edges + kFwdEdges - 1) / kFwdEdges;
+  if (members == 1) {
+    fused_triplet_gate_sum_kernel<LN, false><<<tiles, kFwdEdges, 0, stream>>>(
+        basis, gate, offsets, e2, out, num_edges, num_trip, vec, 1, 0, 0);
+    return;
+  }
+  const int per_launch = members_per_launch(tiles);
+  for (int k0 = 0; k0 < members; k0 += per_launch) {
+    const int k = min(members - k0, per_launch);
+    fused_triplet_gate_sum_kernel<LN, true><<<tiles * k, kFwdEdges, 0, stream>>>(
+        basis + k0 * basis_stride, gate + k0 * gate_stride, offsets, e2,
+        out + (size_t)k0 * LN * num_edges, num_edges, num_trip, vec, k, basis_stride,
+        gate_stride);
+  }
+}
 
 template <int LN>
 void launch_pair(const float* basis, const float* gate, const float* g, const int* e1,
                  const int* e2, const int* order, const int* off2, float* d_basis,
-                 float* d_gate, int num_edges, int num_trip, cudaStream_t stream) {
+                 float* d_gate, int num_edges, int num_trip, int members, long long basis_stride,
+                 long long gate_stride, long long g_stride, cudaStream_t stream) {
+  // The vector paths read the index and write d_basis, whose member slabs
+  // (LN * T floats) stay 16-byte aligned where T % 4 == 0; the float
+  // operands are read a word at a time, so their strides do not matter.
   const bool vec = num_trip % 4 == 0 && aligned16(e1) && aligned16(e2) && aligned16(order) &&
                    aligned16(d_basis);
   const int gate_blocks = (num_edges + kPairEdges - 1) / kPairEdges;
   const long long per_block = (long long)kPairEdges * kPairTrip;
-  const int basis_blocks = (int)(((long long)num_trip + per_block - 1) / per_block);
-  backward_pair_kernel<LN><<<gate_blocks + basis_blocks, kPairEdges, 0, stream>>>(
-      basis, gate, g, e1, e2, order, off2, d_basis, d_gate, num_edges, num_trip, gate_blocks,
-      vec);
+  const int blocks = gate_blocks + (int)(((long long)num_trip + per_block - 1) / per_block);
+  if (members == 1) {
+    backward_pair_kernel<LN, false><<<blocks, kPairEdges, 0, stream>>>(
+        basis, gate, g, e1, e2, order, off2, d_basis, d_gate, num_edges, num_trip, gate_blocks,
+        vec, 1, 0, 0, 0);
+    return;
+  }
+  const int per_launch = members_per_launch(blocks);
+  for (int k0 = 0; k0 < members; k0 += per_launch) {
+    const int k = min(members - k0, per_launch);
+    backward_pair_kernel<LN, true><<<blocks * k, kPairEdges, 0, stream>>>(
+        basis + k0 * basis_stride, gate + k0 * gate_stride, g + k0 * g_stride, e1, e2, order,
+        off2, d_basis + (size_t)k0 * LN * num_trip, d_gate + (size_t)k0 * LN * num_edges,
+        num_edges, num_trip, gate_blocks, vec, k, basis_stride, gate_stride, g_stride);
+  }
 }
 
 }  // namespace
@@ -328,16 +425,27 @@ void launch_pair(const float* basis, const float* gate, const float* g, const in
 #define M3G_ROWS(X)                                                               \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) \
   X(16)
-#define M3G_CASE_FWD(LN_) \
-  case LN_: launch_fwd<LN_>(b, gt, i1, i2, off, o, num_edges, num_trip, s); break;
-#define M3G_CASE_PAIR(LN_) \
-  case LN_: launch_pair<LN_>(b, gt, gg, i1, i2, ord, o2, db, dg, num_edges, num_trip, s); break;
+#define M3G_CASE_FWD(LN_)                                                                      \
+  case LN_:                                                                                    \
+    launch_fwd<LN_>(b, gt, i1, i2, off, o, num_edges, num_trip, members, basis_stride,         \
+                    gate_stride, s);                                                           \
+    break;
+#define M3G_CASE_PAIR(LN_)                                                                     \
+  case LN_:                                                                                    \
+    launch_pair<LN_>(b, gt, gg, i1, i2, ord, o2, db, dg, num_edges, num_trip, members,         \
+                     basis_stride, gate_stride, g_stride, s);                                  \
+    break;
 
 // fused_triplet_gate_sum(basis (rows, T), gate (rows, E), e1, e2) -> out (rows,
-// E); offsets is an (E + 1,) int32 scratch.
+// E) for each of `members` members, each float operand at its member stride
+// in floats (0: shared), out (members, rows, E); offsets is an (E + 1,)
+// int32 scratch.
 extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, const void* e1,
                                           const void* e2, void* offsets, void* out, int rows,
-                                          int num_edges, int num_trip, void* stream) {
+                                          int num_edges, int num_trip, int members,
+                                          long long basis_stride, long long gate_stride,
+                                          void* stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(basis);
   const float* gt = static_cast<const float*>(gate);
   const int* i1 = static_cast<const int*>(e1);
@@ -354,13 +462,17 @@ extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, c
 }
 
 // backward_pair(basis (rows, T), gate (rows, E), g (rows, E), e1, e2, order,
-//   off2) -> d_basis (rows, T), d_gate (rows, E); every element of both is
-//   written.
+//   off2) -> d_basis (rows, T), d_gate (rows, E) for each of `members`
+//   members, each float operand at its member stride in floats (0: shared),
+//   d_basis (members, rows, T), d_gate (members, rows, E); every element of
+//   both is written.
 extern "C" int m3g_backward_pair(const void* basis, const void* gate, const void* g,
                                  const void* e1, const void* e2, const void* order,
                                  const void* off2, void* d_basis, void* d_gate, int rows,
-                                 int num_edges, int num_trip, void* stream) {
-  if (num_edges <= 0 || num_trip < 0) return (int)cudaErrorInvalidValue;
+                                 int num_edges, int num_trip, int members,
+                                 long long basis_stride, long long gate_stride,
+                                 long long g_stride, void* stream) {
+  if (num_edges <= 0 || num_trip < 0 || members < 1) return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(basis);
   const float* gt = static_cast<const float*>(gate);
   const float* gg = static_cast<const float*>(g);

@@ -12,11 +12,11 @@ device once and shared, not batched. Each member takes its forces and
 stress from the potential's functional pass (``M3GNetPotential.forward``
 with ``functional=True``: ``torch.func.vjp`` of the energy). Every kernel
 Function has a vmap rule (``ops._vmap``), so each kernel call of the
-evaluation runs once for all K members: B1-B3 on their member axis (the
-geometry read once, by stride 0), B6-B8 with the members' rows folded into
-one call, B4/B5 (the fused mode) one launch per member. The dense layers
-run as batched matrix products. A committee in the factorized mode thus
-launches one evaluation's kernels, not K.
+evaluation runs once for all K members: B1-B5 on their member axis (a
+shared operand, such as the geometry or the triplet basis, passed once at
+stride 0), B6-B8 with the members' rows folded into one call. The dense
+layers run as batched matrix products. A committee thus launches one
+evaluation's kernels, not K, in either kernel mode.
 """
 
 from __future__ import annotations

@@ -40,11 +40,12 @@ _ENTRIES = {
     "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
     # (vals, order or NULL, offsets, out, rows, num_cols, num_idx, stream)
     "m3g_windowed_scatter": [_P] * 4 + [_I] * 3 + [_P],
-    # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip, stream)
-    "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 3 + [_P],
+    # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip,
+    #  members, basis member stride, gate member stride, stream)
+    "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P],
     # (basis, gate, g, e1, e2, e2 order, e2 offsets, d_basis, d_gate, rows,
-    #  num_edges, num_trip, stream)
-    "m3g_backward_pair": [_P] * 9 + [_I] * 3 + [_P],
+    #  num_edges, num_trip, members, basis, gate and g member strides, stream)
+    "m3g_backward_pair": [_P] * 9 + [_I] * 4 + [_L] * 3 + [_P],
     # (data, seg, offsets (given or scratch), out, rows, num_rows_m, num_segments,
     #  offsets given, rows of one member, stream)
     "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 5 + [_P],

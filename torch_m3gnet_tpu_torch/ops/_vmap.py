@@ -63,8 +63,8 @@ def members(name: str, pairs) -> int | None:
 def per_member(fn, k: int | None, floats, rest):
     """``fn(*member floats, *rest)`` for each of ``k`` members, stacked
     (``fn`` may return a tuple); ``fn`` itself for ``k`` None. The CPU path
-    of the kernel Functions, and the CUDA path of a kernel that has no
-    member axis."""
+    of the kernel Functions (their plain versions); on CUDA every kernel
+    takes the member axis in one launch (:func:`kernel_operand`)."""
     if k is None:
         return fn(*floats, *rest)
     outs = [fn(*(x[i] if x.dim() == 3 else x for x in floats), *rest) for i in range(k)]

@@ -37,11 +37,14 @@ and ``create_graph=True`` works to any order.
 
 Under ``torch.func`` (``vmap``, ``grad``, ``vjp``) the Functions take their
 float operands as (rows, cols), shared, or with a leading member axis,
-(K, rows, cols) (``ops._vmap``). The kernels have no member axis yet: K members are K
-launches of the same kernel (the plain version per member on the CPU).
+(K, rows, cols) (``ops._vmap``). The kernels have a member axis, as JAX's
+``vmap`` of a ``pallas_call`` gives its grid one: K members are one launch,
+each operand passed once with its member stride (0 where the members share
+it), the outputs K contiguous slabs, each bitwise equal to that member's own
+call. On the CPU the plain version runs per member.
 
 ``LAUNCHES`` counts the calls of each op that launch its kernel (CUDA path
-only).
+only): one per call, whatever K.
 """
 
 from __future__ import annotations
@@ -98,9 +101,10 @@ def triplet_e2_order(e2: torch.Tensor, num_edges: int) -> tuple[torch.Tensor, to
 # ---------------------------------------------------------------------------
 
 
-def _check(name, e1, e2, num_edges, pairs, order, off2) -> bool:
-    """Validate the shapes of one member (every path); True for the CUDA
-    path."""
+def _check(name, e1, e2, num_edges, pairs, order, off2):
+    """Validate the shapes (every path): each float operand (rows, cols) or
+    (K, rows, cols), one K for all. Returns (K or None, True when the
+    operands are on CUDA, False for the CPU path)."""
     t = e1.shape[0] if e1.dim() == 1 else -1
     if e1.dim() != 1 or tuple(e2.shape) != (t,):
         raise ValueError(
@@ -112,13 +116,15 @@ def _check(name, e1, e2, num_edges, pairs, order, off2) -> bool:
             f"{name}: the e2 order must be ({t},) and ({num_edges + 1},), got "
             f"{tuple(order.shape)} and {tuple(off2.shape)}"
         )
-    indices = [("e1", e1), ("e2", e2), ("e2 order", order), ("e2 offsets", off2)]
-    rows = pairs[0][1].shape[0] if pairs[0][1].dim() == 2 else -1
+    k = _vmap.members(name, [(label, x) for label, x, _ in pairs])
+    rows = pairs[0][1].shape[-2]
     for label, x, cols in pairs:
         want = (rows, t if cols == "T" else num_edges)
-        if tuple(x.shape) != want:
-            raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected {want}")
-    return _cuda.is_cuda(name, [(label, x) for label, x, _ in pairs], indices)
+        if tuple(x.shape[-2:]) != want:
+            raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected "
+                             f"([K,] {want[0]}, {want[1]})")
+    indices = [("e1", e1), ("e2", e2), ("e2 order", order), ("e2 offsets", off2)]
+    return k, _cuda.is_cuda(name, [(label, x) for label, x, _ in pairs], indices)
 
 
 def _rows(name, rows):
@@ -129,38 +135,45 @@ def _rows(name, rows):
 def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
     name = "fused_triplet_gate_sum"
     pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E")]
-    if not _check(name, e1, e2, num_edges, pairs, order, off2):
-        return fused_triplet_gate_sum_plain(basis_fm, gate_e_fm, e1, e2, num_edges)
-    rows, t = basis_fm.shape
+    k, cuda = _check(name, e1, e2, num_edges, pairs, order, off2)
+    if not cuda:
+        return _vmap.per_member(fused_triplet_gate_sum_plain, k, (basis_fm, gate_e_fm),
+                                (e1, e2, num_edges))
+    rows, t = basis_fm.shape[-2:]
     _rows(name, rows)
-    out = torch.empty((rows, num_edges), dtype=torch.float32, device=basis_fm.device)
+    lead = () if k is None else (k,)
+    out = torch.empty((*lead, rows, num_edges), dtype=torch.float32, device=basis_fm.device)
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
-    basis_fm, gate_e_fm = basis_fm.contiguous(), gate_e_fm.contiguous()
+    (b, b_stride), (g, g_stride) = (_vmap.kernel_operand(x) for x in (basis_fm, gate_e_fm))
+    # the offsets pass runs once for every member: e1 is shared
     offsets = torch.empty(num_edges + 1, dtype=torch.int32, device=out.device)
     _cuda.launch(LAUNCHES, name, "m3g_fused_triplet_gate_sum", out.device,
-                 basis_fm.data_ptr(), gate_e_fm.data_ptr(), e1.data_ptr(), e2.data_ptr(),
-                 offsets.data_ptr(), out.data_ptr(), rows, num_edges, t)
+                 b.data_ptr(), g.data_ptr(), e1.data_ptr(), e2.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), rows, num_edges, t, k or 1, b_stride, g_stride)
     return out
 
 
 def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
     name = "backward_pair"
     pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E"), ("g", g, "E")]
-    if not _check(name, e1, e2, num_edges, pairs, order, off2):
-        return backward_pair_plain(basis_fm, gate_e_fm, g, e1, e2, num_edges)
-    rows, t = basis_fm.shape
+    k, cuda = _check(name, e1, e2, num_edges, pairs, order, off2)
+    if not cuda:
+        return _vmap.per_member(backward_pair_plain, k, (basis_fm, gate_e_fm, g),
+                                (e1, e2, num_edges))
+    rows, t = basis_fm.shape[-2:]
     _rows(name, rows)
-    dev = basis_fm.device
-    d_basis = torch.empty((rows, t), dtype=torch.float32, device=dev)
+    dev, lead = basis_fm.device, () if k is None else (k,)
+    d_basis = torch.empty((*lead, rows, t), dtype=torch.float32, device=dev)
     if d_basis.numel() == 0:  # no triplets: nothing to launch
-        return d_basis, torch.zeros((rows, num_edges), dtype=torch.float32, device=dev)
-    d_gate = torch.empty((rows, num_edges), dtype=torch.float32, device=dev)
-    basis_fm, gate_e_fm, g = basis_fm.contiguous(), gate_e_fm.contiguous(), g.contiguous()
+        return d_basis, torch.zeros((*lead, rows, num_edges), dtype=torch.float32, device=dev)
+    d_gate = torch.empty((*lead, rows, num_edges), dtype=torch.float32, device=dev)
+    (b, b_stride), (q, q_stride), (c, c_stride) = (
+        _vmap.kernel_operand(x) for x in (basis_fm, gate_e_fm, g))
     _cuda.launch(LAUNCHES, name, "m3g_backward_pair", dev,
-                 basis_fm.data_ptr(), gate_e_fm.data_ptr(), g.data_ptr(), e1.data_ptr(),
-                 e2.data_ptr(), order.data_ptr(), off2.data_ptr(), d_basis.data_ptr(),
-                 d_gate.data_ptr(), rows, num_edges, t)
+                 b.data_ptr(), q.data_ptr(), c.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+                 order.data_ptr(), off2.data_ptr(), d_basis.data_ptr(), d_gate.data_ptr(),
+                 rows, num_edges, t, k or 1, b_stride, q_stride, c_stride)
     return d_basis, d_gate
 
 
@@ -169,18 +182,10 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
 # ---------------------------------------------------------------------------
 
 
-def _members(name, pairs, fn, rest):
-    """``fn`` (one member's launch or plain version) for each member of
-    operands with a member axis: the kernels have none yet, so K members
-    are K launches."""
-    return _vmap.per_member(fn, _vmap.members(name, pairs), [x for _, x in pairs], rest)
-
-
 class FusedTripletGateSum(torch.autograd.Function):
     @staticmethod
     def forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
-        return _members("fused_triplet_gate_sum", [("basis", basis_fm), ("gate_e", gate_e_fm)],
-                        _forward, (e1, e2, num_edges, order, off2))
+        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -208,8 +213,7 @@ class FusedTripletGateSum(torch.autograd.Function):
 class BackwardPair(torch.autograd.Function):
     @staticmethod
     def forward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
-        return _members("backward_pair", [("basis", basis_fm), ("gate_e", gate_e_fm), ("g", g)],
-                        _backward, (e1, e2, num_edges, order, off2))
+        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
