@@ -146,9 +146,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    --eos`` on a 4-atom cell against ``--device cpu`` (``ELASTIC_TOL``).
    Each run's wall time goes into the ``{"cli": ...}`` line.
 
-11. parallel: two ranks on one card (``cuda:0``) over gloo (NCCL refuses two
-   ranks on one GPU; gloo stages CUDA tensors through the host, so these
-   times are correctness numbers, not scaling), spawned by
+11. parallel: two ranks (four for dp x gp) on one card (``cuda:0``) over
+   gloo (NCCL refuses two ranks on one GPU; gloo stages CUDA tensors
+   through the host, so these times are correctness numbers, not scaling),
+   spawned by
    ``parallel.launch`` (each rank imports this file; a rank that fails or
    outlasts ``PAR_TIMEOUT_S`` fails the phase). gp: a 10x10x10 fcc-Cu
    supercell (4,000 atoms, Gaussian jitter 0.05 A, phase 9's teacher's
@@ -156,13 +157,16 @@ Phases (each raises on failure, so any failure exits non-zero):
    default model (seed 0) in the factorized and the fused mode: each rank's
    launches exactly one eval's of its mode, E/F/S (every shard's forces
    gathered) against the unpartitioned graph on one rank on the card
-   (``MODEL_TOL``); one ``GraphParallelTrainer.train_step``: its loss and
-   the gradient it hands the optimizer against the single-device loss and
-   gradient (``MODEL_TOL``, ``TRAIN_TOL``), its update against Adam given
-   that gradient (``UPDATE_TOL``), the weights after the step bitwise
-   equal on both ranks; the halo exchange of 64 feature columns timed. dp: phase 9's first 8 mlearn cells as 2 x 4 graphs, then a tail
-   of 3 that leaves rank 1 fully padded: each step's combined gradient
-   against the same weighted gradient formed row by row on one rank
+   (``MODEL_TOL``); one ``GraphParallelTrainer.train_step`` in each mode
+   (the fused one through B4-B7's double backward): its loss and the
+   gradient it hands the optimizer against one device's ``Trainer`` step
+   on the whole cell in that mode (``MODEL_TOL``, ``TRAIN_TOL``), its
+   update against Adam given that gradient (``UPDATE_TOL``), the weights
+   after the step bitwise equal on both ranks (``check_gp_step``); the halo
+   exchange of 64 feature columns timed. dp: phase 9's first 8 mlearn
+   cells as 2 x 4 graphs, then a tail of 3 that leaves rank 1 fully
+   padded: each step's combined gradient against the same weighted
+   gradient formed row by row on one rank
    (``TRAIN_TOL``), its update against Adam given that gradient
    (``UPDATE_TOL``); an unweighted mean must fail the tail's check. Then
    ``train_mlearn --mesh 2 --device cuda:0`` on both ranks of the same job
@@ -174,11 +178,21 @@ Phases (each raises on failure, so any failure exits non-zero):
    NCCL path one card can run): the card bound before its process group
    started (``device_id``), ``broadcast_parameters`` over NCCL, and one
    ``DataParallel`` step bitwise equal to the ``Trainer`` step on the same
-   batch (``nccl_one_rank``). ``multicard_smoke.py`` runs the NCCL path on
-   several cards. Prints
-   the ``{"parallel": ...}`` line (gp eval ms per mode against one
-   device's, the gp train step, the exchange per call and its rows, the dp
-   step against one rank's, and the dp streaming producer's host ms per
+   batch (``nccl_one_rank``). Then dp x gp: four gloo ranks on ``cuda:0``,
+   a 2 x 2 ("dp", "gp") mesh, the gp cell and its second jitter (seed
+   ``GP_SEED + 1``, teacher-labelled) one a dp row, each in two slabs
+   (``dp_gp_rank``, ``check_dp_gp``): each rank's launches one eval's, each
+   row's E/F/S against its cell on one device; one
+   ``GraphParallelTrainer(..., dp_axis="dp")`` step: its loss and gradient
+   against the mean of the two cells' one-device ``Trainer`` steps, its
+   update, the weights bitwise equal on all four ranks, the trainer's
+   ``eval_loss`` (no grad) against the step's loss; the first row's
+   gradient alone and the sum of the rows' in place of their mean must
+   each fail. ``multicard_smoke.py`` runs the NCCL path on several cards.
+   Prints the ``{"parallel": ...}`` line (gp eval ms per mode against one
+   device's, the gp train step per mode, the exchange per call and its
+   rows, the dp step against one rank's, the dp x gp eval and train step,
+   and the dp streaming producer's host ms per
    batch on the mlearn training set: a rank's full stream as
    ``train_model`` reads it, one device's, and a rank's stride of shards).
 
@@ -3253,6 +3267,184 @@ def flat_grads(loss, params):
     return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
 
 
+def host_efs(out) -> dict:
+    """E/F/S of a ``PotentialOutput`` as host arrays (they cross processes)."""
+    return {f: getattr(out, f).detach().cpu().numpy() for f in ("energy", "forces", "stress")}
+
+
+def recording(trainer_cls):
+    """``trainer_cls`` that keeps the gradient it hands the optimizer
+    (``grads``)."""
+
+    class Recording(trainer_cls):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().clone() for g in grads]
+            super().apply_gradients(grads)
+
+    return Recording
+
+
+def gp_step(trainer, batch, device, reps: int = 3) -> dict:
+    """One step of a recording ``GraphParallelTrainer`` on ``batch``
+    (every rank calls it): whether the weights after it are bitwise equal
+    on every rank; on rank 0 the loss, the weights before and after it and
+    the gradient the optimizer read (host arrays); then the step's ms
+    (``rank_times``) on the shard already on ``device``."""
+    import torch
+    import torch.distributed as dist
+
+    before = [p.detach().cpu().numpy().copy() for p in trainer.params]
+    loss = float(trainer.train_step(batch, trainer.config.learning_rate)["loss"])
+    flat = torch.cat([p.detach().reshape(-1) for p in trainer.params])
+    every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, flat)
+    out = {"weights_bitwise_equal_across_ranks": all(torch.equal(every[0], f) for f in every)}
+    if dist.get_rank() == 0:
+        out.update(loss=loss, before=before, grads=[g.cpu().numpy() for g in trainer.grads],
+                   after=[p.detach().cpu().numpy().copy() for p in trainer.params])
+    card = trainer.gp.to_device(batch, device, index=trainer.potential.model.batch_index)
+    out["step_ms"] = rank_times(lambda: trainer.train_step(card), reps=reps)
+    return out
+
+
+def one_device_step(cfg, batch, device) -> dict:
+    """The seed-0 model's ``Trainer`` step on the whole graph ``batch`` on
+    ``device``: the reference of a gp step (``check_gp_step``)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+
+    pot = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    before, grads, _, loss = trainer_step(pot, cfg, batch)
+    return {"cfg": cfg, "loss": loss, "before": [b.cpu() for b in before],
+            "grads": [g.cpu() for g in grads]}
+
+
+def check_gp_step(label: str, got: dict, ref: dict, equal: list, controls=None) -> dict:
+    """A gp train step (``gp_step``: rank 0's ``got``, every rank's bitwise
+    flag in ``equal``) against the one-device step ``ref``
+    (``one_device_step``, or the mean of several): the same start, the loss
+    within ``MODEL_TOL``, the gradient the optimizer read within
+    ``TRAIN_TOL``, the update within ``UPDATE_TOL`` of Adam given that
+    gradient, the weights bitwise equal on every rank; each gradient of
+    ``controls`` (name -> gradient) must fail the gradient check."""
+    import torch
+
+    def host(xs):
+        return [torch.as_tensor(np.asarray(x)) for x in xs]
+
+    before, grads, after = host(got["before"]), host(got["grads"]), host(got["after"])
+    same_start = all(torch.equal(b, torch.as_tensor(np.asarray(w)))
+                     for b, w in zip(before, ref["before"]))
+    grad_err, update_err = step_errors(ref["cfg"], host(ref["grads"]), before, grads, after)
+    loss_err = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
+    control = {name: step_errors(ref["cfg"], host(c), before, grads, after)[0]
+               for name, c in (controls or {}).items()}
+    print(f"  {label}: loss {got['loss']:.6e} vs one device {ref['loss']:.6e} (rel "
+          f"{loss_err:.3e}), worst gradient rel {grad_err:.3e} tol {TRAIN_TOL:.0e}, update "
+          f"{update_err:.3e} lr tol {UPDATE_TOL:.0e}; same start {same_start}; weights bitwise "
+          f"equal across ranks {equal}" + "".join(f"; control ({k}) gradient rel {v:.3e}"
+                                                   for k, v in control.items()))
+    if not (same_start and loss_err <= MODEL_TOL and grad_err <= TRAIN_TOL
+            and update_err <= UPDATE_TOL and all(equal)):
+        raise AssertionError(f"{label}: loss {loss_err:.3e}, gradient {grad_err:.3e}, update "
+                             f"{update_err:.3e}, same start {same_start}, bitwise {equal}")
+    passed = [k for k, v in control.items() if v <= TRAIN_TOL]
+    if passed:
+        raise AssertionError(f"{label}: the controls {passed} passed the gradient check")
+    return {"loss": got["loss"], "one_device_loss": ref["loss"], "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "update_err_lr": update_err,
+            "weights_bitwise_equal_across_ranks": equal,
+            **({"control_grad_rel_err": control} if control else {})}
+
+
+def dp_gp_reference(steps: list) -> tuple:
+    """The dp x gp step's one-device reference from each dp row's
+    ``one_device_step``: the mean of their losses and gradients; and its
+    controls, which must fail the gradient check: the first row's gradient
+    alone (a dp row dropped), and the sum of the rows' in place of their
+    mean."""
+    mean = {**steps[0], "loss": sum(s["loss"] for s in steps) / len(steps),
+            "grads": [sum(g) / len(steps) for g in zip(*(s["grads"] for s in steps))]}
+    return mean, {"first_row_alone": steps[0]["grads"],
+                  "sum_of_rows": [sum(g) for g in zip(*(s["grads"] for s in steps))]}
+
+
+def dp_gp_rank(inputs: dict) -> dict:
+    """dp x gp on one rank of a 2 x 2 ("dp", "gp") mesh (see
+    ``check_dp_gp``), the default model (seed 0) on ``inputs["device"]``:
+    the gp eval of its dp row (launches, E/F/S on gp rank 0, ms), then one
+    ``GraphParallelTrainer(..., dp_axis="dp")`` step over both rows
+    (``gp_step``), the trainer's ``eval_loss`` (no grad) before it.
+    ``inputs["batch"]``: both rows' partitions stacked
+    (``stack_partitions``), or this rank's shard."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.parallel import GraphParallelPotential, GraphParallelTrainer
+    from torch_m3gnet_tpu_torch.parallel import make_mesh
+
+    device, cfg, batch = torch.device(inputs["device"]), inputs["config"], inputs["batch"]
+    mesh = make_mesh((2, 2), ("dp", "gp"), device.type, device=device)
+    pot = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
+    gp = GraphParallelPotential(pot, mesh, "gp")
+    cuda = device.type == "cuda"
+    reset_launches()
+    res = gp.apply(batch)
+    synchronize()
+    out = {"dp_row": mesh.get_local_rank("dp"), "gp_rank": mesh.get_local_rank("gp"),
+           "launches": all_launches() if cuda else None,
+           "expected": expected_launches(pot.model.threebody_mode, cfg.num_blocks, False)}
+    if out["gp_rank"] == 0:
+        out["efs"] = host_efs(res)
+    card = gp.to_device(batch, device, index=pot.model.batch_index)
+    out["eval_ms"] = rank_times(lambda: gp(card))
+    trainer = recording(GraphParallelTrainer)(pot, cfg, mesh, "gp", dp_axis="dp")
+    out["eval_loss"] = float(trainer.eval_loss(batch))
+    out["train"] = gp_step(trainer, batch, device)
+    return out
+
+
+def check_dp_gp(ranks, evals: list, steps: list, label: str = "dp x gp 2 x 2") -> dict:
+    """``dp_gp_rank`` on four ranks: each rank's launches one eval's; each
+    dp row's E/F/S (its gp rank 0's, every shard's forces) against its cell
+    on one device (``evals[row]``, ``MODEL_TOL``); the trainer's
+    ``eval_loss`` equal on every rank and within ``MODEL_TOL`` of the
+    step's loss; the step against the mean of the rows' one-device steps
+    (``steps``), each control failing (``dp_gp_reference``)."""
+    import torch
+
+    errs = {}
+    for r in ranks:
+        if r["launches"] is not None and r["launches"] != r["expected"]:
+            raise AssertionError(f"{label}: launches {r['launches']}, expected one eval's "
+                                 f"{r['expected']}")
+        if r["gp_rank"] == 0:
+            d = r["dp_row"]
+            errs[d] = {}
+            for f in ("energy", "forces", "stress"):
+                want = torch.as_tensor(np.asarray(evals[d][f]))
+                errs[d][f] = rel_err(torch.as_tensor(r["efs"][f])[: len(want)], want)[1]
+                print(f"  {label}, dp row {d} {f}: rel={errs[d][f]:.3e} tol={MODEL_TOL:.0e}")
+                if not errs[d][f] <= MODEL_TOL:
+                    raise AssertionError(f"{label} row {d} {f}: relative error {errs[d][f]:.3e}")
+    if sorted(errs) != [0, 1]:
+        raise AssertionError(f"{label}: rows reported {sorted(errs)}")
+    ref, controls = dp_gp_reference(steps)
+    train = check_gp_step(f"{label} train step", ranks[0]["train"], ref,
+                          [r["train"]["weights_bitwise_equal_across_ranks"] for r in ranks],
+                          controls)
+    losses = [r["eval_loss"] for r in ranks]
+    eval_err = abs(losses[0] - train["loss"]) / max(abs(train["loss"]), 1e-30)
+    print(f"  {label} eval_loss (no grad) {losses[0]:.6e}, rel {eval_err:.3e} of the step's loss")
+    if any(x != losses[0] for x in losses) or not eval_err <= MODEL_TOL:
+        raise AssertionError(f"{label}: eval_loss per rank {losses} against the step's loss "
+                             f"{train['loss']}")
+    return {"rel_err": errs, "launches_per_rank": ranks[0]["launches"],
+            "eval_ms": [r["eval_ms"] for r in ranks], "train": train,
+            "eval_loss_rel_err": eval_err, "step_ms": [r["train"]["step_ms"] for r in ranks]}
+
+
 def gp_rank(inputs: dict) -> dict:
     """Phase 11's gp checks on one rank (see ``check_parallel``)."""
     import torch
@@ -3263,9 +3455,8 @@ def gp_rank(inputs: dict) -> dict:
     from torch_m3gnet_tpu_torch.ops.halo import halo_exchange_fm
     from torch_m3gnet_tpu_torch.parallel import GraphParallelPotential, GraphParallelTrainer
     from torch_m3gnet_tpu_torch.parallel import make_mesh
-    from torch_m3gnet_tpu_torch.train import loss_and_metrics
 
-    rank, world = dist.get_rank(), dist.get_world_size()
+    rank = dist.get_rank()
     mesh = make_mesh(None, "gp", "cuda", device=PAR_DEVICE)
     sharded, full = inputs["sharded"], inputs["full"]
     out = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device()))}
@@ -3296,39 +3487,14 @@ def gp_rank(inputs: dict) -> dict:
     out["exchange_ms"] = rank_times(
         lambda: halo_exchange_fm(x, send, recv, shard.halo_offsets, gp.group), reps=20)
 
-    # one GraphParallelTrainer step (factorized): the gradient its train_step
-    # hands the optimizer against one device's, its update against Adam
-    class Recording(GraphParallelTrainer):
-        def apply_gradients(self, grads):
-            self.grads = [g.detach().clone() for g in grads]
-            super().apply_gradients(grads)
-
-    cfg = M3GNetConfig()
-    trainer = Recording(build_model(cfg, device=PAR_DEVICE,
-                                    generator=torch.Generator().manual_seed(0)), cfg, mesh)
-    before = [p.detach().clone() for p in trainer.params]
-    loss = trainer.train_step(sharded, cfg.learning_rate)["loss"]
-    flat = torch.cat([p.detach().reshape(-1) for p in trainer.params])
-    every = [torch.empty_like(flat) for _ in range(world)]
-    dist.all_gather(every, flat)
-    out["train"] = {"weights_bitwise_equal_across_ranks": all(torch.equal(every[0], f)
-                                                              for f in every)}
-    if rank == 0:
-        ref = build_model(cfg, device=PAR_DEVICE)
-        with torch.no_grad():
-            for p, b in zip(ref.parameters(), before):
-                p.copy_(b)
-        want, _ = loss_and_metrics(ref, full, cfg)
-        want_g = flat_grads(want, list(ref.parameters()))
-        grad_err, update_err = step_errors(cfg, [g.cpu() for g in want_g], before,
-                                           trainer.grads,
-                                           [p.detach() for p in trainer.params])
-        out["train"].update(
-            loss=float(loss), single_loss=float(want.detach()),
-            loss_rel_err=rel_err(loss, want.detach())[1], grad_rel_err=grad_err,
-            update_err_lr=update_err)
-    dist.barrier()
-    out["train"]["gp_train_step_ms"] = rank_times(lambda: trainer.train_step(sharded), reps=3)
+    # one GraphParallelTrainer step in each mode (checked against one
+    # device's Trainer step by the parent: check_gp_step)
+    out["train"] = {}
+    for mode in ("factorized", "fused"):
+        cfg = M3GNetConfig(threebody_mode=mode)
+        trainer = recording(GraphParallelTrainer)(build_model(
+            cfg, device=PAR_DEVICE, generator=torch.Generator().manual_seed(0)), cfg, mesh)
+        out["train"][mode] = gp_step(trainer, sharded, PAR_DEVICE)
     return out
 
 
@@ -3343,18 +3509,13 @@ def dp_rank(inputs: dict) -> dict:
     from torch_m3gnet_tpu_torch.parallel import DataParallel, make_mesh
     from torch_m3gnet_tpu_torch.train import Trainer, loss_and_metrics
 
-    class Recording(DataParallel):
-        def apply_gradients(self, grads):
-            self.grads = [g.detach().clone() for g in grads]
-            super().apply_gradients(grads)
-
     rank, device = dist.get_rank(), inputs.get("device", PAR_DEVICE)
     mesh = make_mesh(None, "dp", torch.device(device).type, device=device)
     cfg = inputs["config"]
     out = {"rank": rank}
     for label, stack in inputs["stacks"].items():
         pot = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
-        dp = Recording(pot, cfg, mesh)
+        dp = recording(DataParallel)(pot, cfg, mesh)
         before = [p.detach().clone() for p in dp.params]
         dp.train_step(stack, cfg.learning_rate)
         after = [p.detach().clone() for p in dp.params]
@@ -3618,25 +3779,57 @@ def check_parallel(name, smi, mlearn: str) -> dict:
         info["gp"][mode] = {k: gp[mode][k] for k in ("launches", "gp_eval_ms",
                                                       "single_eval_ms", "rel_err")}
     info["exchange_ms"] = gp["exchange_ms"]
-    train = gp["train"]
-    print(f"  gp train step: loss {train['loss']:.6e} vs one device {train['single_loss']:.6e} "
-          f"(rel {train['loss_rel_err']:.3e}), worst weight gradient rel "
-          f"{train['grad_rel_err']:.3e} tol {TRAIN_TOL:.0e}, update {train['update_err_lr']:.3e} "
-          f"lr tol {UPDATE_TOL:.0e}; weights bitwise equal across ranks "
-          f"{[r['gp']['train']['weights_bitwise_equal_across_ranks'] for r in ranks]}")
-    if not (train["loss_rel_err"] <= MODEL_TOL and train["grad_rel_err"] <= TRAIN_TOL
-            and train["update_err_lr"] <= UPDATE_TOL
-            and all(r["gp"]["train"]["weights_bitwise_equal_across_ranks"] for r in ranks)):
-        raise AssertionError(f"gp train step: {train}")
-    info["gp_train"] = train
+    info["gp_train"] = {}
+    for mode in ("factorized", "fused"):
+        info["gp_train"][mode] = check_gp_step(
+            f"gp train step, {mode}", gp["train"][mode],
+            one_device_step(M3GNetConfig(threebody_mode=mode), full, "cuda"),
+            [r["gp"]["train"][mode]["weights_bitwise_equal_across_ranks"] for r in ranks])
+        info["gp_train"][mode]["step_ms"] = gp["train"][mode]["step_ms"]
     info["dp"] = check_dp(dp)
+    info["dp_gp"] = check_dp_gp_phase(full)
     print(f"  times ({name} | {smi}; {info['note']}): gp eval ms "
           f"{ {m: round(info['gp'][m]['gp_eval_ms'], 2) for m in info['gp']} } vs one device "
           f"{ {m: round(info['gp'][m]['single_eval_ms'], 2) for m in info['gp']} }; exchange "
           f"{info['exchange_ms']:.3f} ms a call of "
-          f"{info['gp_cell']['halo_stats']['halo_rows_per_shard']} rows; gp train step "
-          f"{train['gp_train_step_ms']:.1f} ms; dp step {dp['dp_step_ms']:.1f} ms vs one rank "
-          f"{dp['one_rank_step_ms']:.1f} ms")
+          f"{info['gp_cell']['halo_stats']['halo_rows_per_shard']} rows; gp train step ms "
+          f"{ {m: round(t['step_ms'], 1) for m, t in info['gp_train'].items()} }; dp step "
+          f"{dp['dp_step_ms']:.1f} ms vs one rank {dp['one_rank_step_ms']:.1f} ms; dp x gp "
+          f"(4 ranks) eval {info['dp_gp']['eval_ms'][0]:.1f} ms, train step "
+          f"{info['dp_gp']['step_ms'][0]:.1f} ms")
+    return info
+
+
+def check_dp_gp_phase(full) -> dict:
+    """Phase 11's dp x gp job: four gloo ranks on ``PAR_DEVICE``, a 2 x 2
+    ("dp", "gp") mesh, the gp cell ``full`` and its second jitter (seed
+    ``GP_SEED + 1``, labelled by the teacher) one a dp row, each cut into
+    two slabs at common shapes (``dp_gp_rank``, ``check_dp_gp``)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.config import M3GNetConfig
+    from torch_m3gnet_tpu_torch.data import graph_from_structure
+    from torch_m3gnet_tpu_torch.models import build_model
+    from torch_m3gnet_tpu_torch.parallel import launch, stack_partitions
+    from torch_m3gnet_tpu_torch.parallel.graph_shard import spatial_reorder
+
+    cfg = M3GNetConfig()
+    t0 = time.perf_counter()
+    second, _ = spatial_reorder(graph_from_structure(gp_cell(seed=GP_SEED + 1), cfg.cutoff,
+                                                     cfg.threebody_cutoff), "axis")
+    cells = (full, second)
+    stack = stack_partitions(cells, 2)
+    pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    evals = [host_efs(pot(g)) for g in cells]
+    steps = [one_device_step(cfg, g, "cuda") for g in cells]
+    host_s = time.perf_counter() - t0
+    t0 = time.time()
+    ranks = launch.run("chip_smoke:dp_gp_rank", 4, {"batch": stack, "device": PAR_DEVICE,
+                                                    "config": cfg},
+                       backend=PAR_BACKEND, timeout_s=PAR_TIMEOUT_S)
+    info = {"ranks": 4, "mesh": {"dp": 2, "gp": 2}, "set_up_s": host_s,
+            "job_s": time.time() - t0, **check_dp_gp(ranks, evals, steps)}
+    print(f"  dp x gp job (4 ranks on {PAR_DEVICE}, {PAR_BACKEND}): {info['job_s']:.1f} s")
     return info
 
 
@@ -4035,7 +4228,8 @@ def main() -> int:
         cli = check_cli(name, smi, os.path.join(keep, "best"), gbatch)
         cli["phase_s"] = time.perf_counter() - t0
         print(json.dumps({"cli": cli}))
-        print(f"== 11. parallel: {PAR_RANKS} ranks on {PAR_DEVICE} over {PAR_BACKEND}")
+        print(f"== 11. parallel: {PAR_RANKS} ranks (4 for dp x gp) on {PAR_DEVICE} over "
+              f"{PAR_BACKEND}")
         t0 = time.perf_counter()
         par = check_parallel(name, smi, os.path.join(keep, "mlearn_Cu"))
         par["phase_s"] = time.perf_counter() - t0

@@ -1,6 +1,6 @@
 """Drive the PyTorch port on every card of one host, one NCCL rank a card.
 
-    python3 multicard_smoke.py
+    python3 multicard_smoke.py [--parts gp_eval,dp_gp,...]
 
 It needs two or more CUDA devices and uses up to four; with fewer than two
 it exits 1 with a message on stderr and prints no result. S runs over each
@@ -26,11 +26,12 @@ Parts, in this order (one JSON line each):
    are the global columns of its destination) and then timed with CUDA
    events after a synchronise and a barrier (median of 20), with its bytes
    and GB/s; ``broadcast_parameters``' ms; each rank's bound card.
-2. ``gp_train``: one ``GraphParallelTrainer`` step (factorized) on gp-4000:
-   its loss (``MODEL_TOL``), the gradient it hands the optimizer
-   (``TRAIN_TOL``) and its update (``UPDATE_TOL``) against one card's
-   ``Trainer`` step on the whole cell; the weights bitwise equal on every
-   rank afterwards; the step's ms.
+2. ``gp_train``: one ``GraphParallelTrainer`` step on gp-4000 in the
+   factorized and in the fused mode (B4-B7's double backward; the exchange
+   crossed twice a block): its loss (``MODEL_TOL``), the gradient it hands
+   the optimizer (``TRAIN_TOL``) and its update (``UPDATE_TOL``) against
+   one card's ``Trainer`` step on the whole cell in that mode; the weights
+   bitwise equal on every rank afterwards; the step's ms.
 3. ``gp_big``: gp-32000 (``BIG_REPS`` = 20: 32,000 atoms, ~1.36 M edges,
    ~9.8 M triplets), factorized, its shards passed to the ranks in files:
    the eval at each S against one card (``MODEL_TOL``; launches one
@@ -53,10 +54,20 @@ Parts, in this order (one JSON line each):
    it (dp weights each rank's metrics by its real graphs, so the two differ
    by design).
 6. ``dp_gp``: on four cards, a ("dp", "gp") mesh of 2 x 2: gp-4000 and a
-   second jitter of it, one per dp row, each row's gp E/F/S against its
-   cell on one card.
+   second jitter of it (both labelled by the teacher), one per dp row
+   (``chip_smoke.dp_gp_rank``): each row's gp E/F/S against its cell on
+   one card, each rank's launches one eval's, the eval's ms; then one
+   ``GraphParallelTrainer(..., dp_axis="dp")`` step: its loss against the
+   mean of the two cells' one-card losses (``MODEL_TOL``), the gradient it
+   hands the optimizer against the mean of their gradients (``TRAIN_TOL``),
+   its update (``UPDATE_TOL``), the weights bitwise equal on all four
+   ranks, the step's ms, the trainer's ``eval_loss`` (no grad) against the
+   step's loss; the first row's gradient alone and the sum of the rows'
+   must each fail the gradient check (``chip_smoke.check_dp_gp``).
 
-A part that fails does not stop the next; the script then ends with
+``--parts gp_eval,dp_gp`` runs only the parts named (every part without
+it; ``gp_eval`` and ``gp_train`` share one job a size, which then runs
+only the named one). A part that fails does not stop the next; the script then ends with
 ``{"ok": false, "failed": [...]}`` and exit 1. On success the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``,
 after the cards' ``nvidia-smi`` name and power limit and the link matrix.
@@ -88,10 +99,13 @@ BIG_REPS = 20
 # The halo exchange timed: F feature columns (one block's node features) of
 # f32 values from EXCHANGE_SEED, REPS_EXCHANGE calls.
 EXCHANGE_F, EXCHANGE_SEED, REPS_EXCHANGE = 64, 7, 20
+# The links under large messages: LINK_BYTES a rank, REPS_LINK calls.
+LINK_BYTES, REPS_LINK, CPU_LINK_BYTES = 256 * 2**20, 5, 2**16
 # Each job's time limit, and the whole script's: a part that would start
 # after SCRIPT_BUDGET_S is skipped (and fails).
 JOB_TIMEOUT_S, BIG_JOB_TIMEOUT_S, CLI_TIMEOUT_S, SCRIPT_BUDGET_S = 240, 420, 300, 1200
 FIELDS = ("energy", "forces", "stress")
+MODES = ("factorized", "fused")
 GB = 1e9
 
 
@@ -148,10 +162,6 @@ def _peak_gb(inputs):
         return None
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() / GB
-
-
-def _efs(out) -> dict:
-    return {f: getattr(out, f).detach().cpu().numpy() for f in FIELDS}
 
 
 def collective_ms(fn, inputs, reps: int) -> list:
@@ -216,6 +226,28 @@ def exchange(inputs, mine: dict, group) -> dict:
             "bytes_sent": nbytes, "gb_per_s": nbytes / (ms * 1e-3) / GB}
 
 
+def link_probe(inputs, group) -> dict:
+    """The links' rate under large messages, beside the exchange's small
+    ones: an even ``all_to_all_single`` and an ``all_reduce`` of
+    ``inputs["link_bytes"]`` f32 bytes a rank (``LINK_BYTES`` on the card),
+    each timed as the exchange is (median of ``REPS_LINK``). The
+    all-to-all's rate counts the bytes each rank sends to the others; the
+    all-reduce's is its bus rate, 2 (S - 1) / S x bytes over the time."""
+    import torch
+    import torch.distributed as dist
+
+    size = dist.get_world_size(group)
+    n = inputs["link_bytes"] // 4 // size * size
+    x, y = (torch.ones(n, device=_device(inputs)) for _ in range(2))
+    out = {"bytes_per_rank": 4 * n}
+    for label, fn, moved in (
+            ("all_to_all", lambda: dist.all_to_all_single(y, x, group=group), (size - 1) / size),
+            ("all_reduce", lambda: dist.all_reduce(x, group=group), 2 * (size - 1) / size)):
+        ms = statistics.median(collective_ms(fn, inputs, REPS_LINK))
+        out[label] = {"ms": ms, "gb_per_s": moved * 4 * n / (ms * 1e-3) / GB}
+    return out
+
+
 def gp_eval_part(inputs) -> dict:
     """Part 1 on one rank."""
     import torch.distributed as dist
@@ -225,7 +257,7 @@ def gp_eval_part(inputs) -> dict:
 
     mine, mesh, out = _mine(inputs["gp_eval"]["files"]), _mesh(inputs), {}
     rank, shard = dist.get_rank(), mine["shard"]
-    for mode in ("factorized", "fused"):
+    for mode in MODES:
         cfg, pot = _model(inputs, threebody_mode=mode)
         gp = GraphParallelPotential(pot, mesh)
         cs.reset_launches()
@@ -236,41 +268,26 @@ def gp_eval_part(inputs) -> dict:
         card = gp.to_device(shard, _device(inputs), index=pot.model.batch_index)
         row["gp_eval_ms"] = cs.rank_times(lambda: gp(card))
         if rank == 0:
-            row["efs"] = _efs(res)
+            row["efs"] = cs.host_efs(res)
         out[mode] = row
     out["exchange"] = exchange(inputs, mine, gp.group)
+    out["link"] = link_probe(inputs, gp.group)
     out["broadcast_ms"] = statistics.median(collective_ms(lambda: broadcast_parameters(pot),
                                                          inputs, 5))
     return out
 
 
 def gp_train_part(inputs) -> dict:
-    """Part 2 on one rank: one ``GraphParallelTrainer`` step, the gradient
-    it hands the optimizer recorded."""
-    import torch
-    import torch.distributed as dist
-
+    """Part 2 on one rank: one ``GraphParallelTrainer`` step in each mode
+    (``chip_smoke.gp_step``: the gradient it hands the optimizer
+    recorded)."""
     from torch_m3gnet_tpu_torch.parallel import GraphParallelTrainer
 
-    class Recording(GraphParallelTrainer):
-        def apply_gradients(self, grads):
-            self.grads = [g.detach().clone() for g in grads]
-            super().apply_gradients(grads)
-
-    shard = _mine(inputs["gp_train"]["files"])["shard"]
-    cfg, pot = _model(inputs)
-    trainer = Recording(pot, cfg, _mesh(inputs))
-    before = [p.detach().cpu().numpy().copy() for p in trainer.params]
-    loss = float(trainer.train_step(shard, cfg.learning_rate)["loss"])
-    flat = torch.cat([p.detach().reshape(-1) for p in trainer.params])
-    every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
-    dist.all_gather(every, flat)
-    out = {"weights_bitwise_equal_across_ranks": all(torch.equal(every[0], f) for f in every)}
-    if dist.get_rank() == 0:
-        out.update(loss=loss, before=before, grads=[g.cpu().numpy() for g in trainer.grads],
-                   after=[p.detach().cpu().numpy().copy() for p in trainer.params])
-    card = trainer.gp.to_device(shard, _device(inputs), index=pot.model.batch_index)
-    out["gp_train_step_ms"] = cs.rank_times(lambda: trainer.train_step(card), reps=3)
+    shard, out = _mine(inputs["gp_train"]["files"])["shard"], {}
+    for mode in MODES:
+        cfg, pot = _model(inputs, threebody_mode=mode)
+        trainer = cs.recording(GraphParallelTrainer)(pot, cfg, _mesh(inputs))
+        out[mode] = cs.gp_step(trainer, shard, _device(inputs))
     return out
 
 
@@ -281,11 +298,6 @@ def gp_big_part(inputs) -> dict:
     import torch.distributed as dist
 
     from torch_m3gnet_tpu_torch.parallel import GraphParallelPotential, GraphParallelTrainer
-
-    class Recording(GraphParallelTrainer):
-        def apply_gradients(self, grads):
-            self.grads = [g.detach().cpu().numpy() for g in grads]
-            super().apply_gradients(grads)
 
     mine, mesh, rank = _mine(inputs["gp_big"]["files"]), _mesh(inputs), dist.get_rank()
     cfg, pot = _model(inputs)
@@ -298,16 +310,16 @@ def gp_big_part(inputs) -> dict:
            "launches": cs.all_launches() if inputs["platform"] == "cuda" else None,
            "expected": cs.expected_launches("factorized", cfg.num_blocks, False)}
     if rank == 0:
-        out["efs"] = _efs(res)
+        out["efs"] = cs.host_efs(res)
     del res
     out["gp_eval_ms"] = cs.rank_times(lambda: gp(card))
     out["exchange"] = exchange(inputs, mine, gp.group)
-    trainer = Recording(pot, cfg, mesh)
+    trainer = cs.recording(GraphParallelTrainer)(pot, cfg, mesh)
     _peak_reset(inputs)
     loss = float(trainer.train_step(card, cfg.learning_rate)["loss"])
     out["train_peak_gb"] = _peak_gb(inputs)
     if rank == 0:
-        out.update(loss=loss, grads=trainer.grads)
+        out.update(loss=loss, grads=[g.cpu().numpy() for g in trainer.grads])
     out["gp_train_step_ms"] = cs.rank_times(lambda: trainer.train_step(card), reps=2)
     return out
 
@@ -318,21 +330,18 @@ def dp_part(inputs) -> dict:
 
 
 def dp_gp_part(inputs) -> dict:
-    """Part 6 on one rank: the gp eval of this rank's dp row on a 2 x 2
-    ("dp", "gp") mesh."""
-    from torch_m3gnet_tpu_torch.parallel import GraphParallelPotential
-
-    mesh = _mesh(inputs, (2, 2), ("dp", "gp"))
-    _, pot = _model(inputs)
-    res = GraphParallelPotential(pot, mesh, "gp").apply(_mine(inputs["dp_gp"]["files"])["shard"])
-    out = {"dp_row": mesh.get_local_rank("dp"), "gp_rank": mesh.get_local_rank("gp")}
-    if out["gp_rank"] == 0:
-        out["efs"] = _efs(res)
-    return out
+    """Part 6 on one rank: ``chip_smoke.dp_gp_rank`` on a 2 x 2 ("dp",
+    "gp") mesh, this rank's shard on its card: the eval of its dp row, then
+    one dp x gp ``GraphParallelTrainer`` step over both rows."""
+    cfg, _ = _model(inputs)
+    return cs.dp_gp_rank({"batch": _mine(inputs["dp_gp"]["files"])["shard"],
+                          "device": _device(inputs), "config": cfg})
 
 
 PARTS = {"gp_eval": gp_eval_part, "gp_train": gp_train_part, "gp_big": gp_big_part,
          "dp": dp_part, "dp_gp": dp_gp_part}
+# The script's parts, in the order they run (``--parts`` picks among them).
+PART_NAMES = ("gp_eval", "gp_train", "gp_big", "dp", "mesh_cli", "dp_gp")
 
 
 def rank_job(inputs: dict) -> dict:
@@ -419,7 +428,7 @@ def one_card_eval(cfg, full, device, reps: int = 5) -> dict:
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    out = {"efs": _efs(pot(card))}
+    out = {"efs": cs.host_efs(pot(card))}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / GB if cuda else None
     out["eval_ms"] = cs.rank_times(lambda: pot(card), reps=reps)
     del pot, card
@@ -429,11 +438,8 @@ def one_card_eval(cfg, full, device, reps: int = 5) -> dict:
 
 def gp4000_data(tmp, sizes, device="cuda", settings=None, reps=cs.GP_REPS) -> dict:
     """gp-4000 (``reps`` a side), its shards at each S, and one card's
-    eval in both modes and ``Trainer`` step on the whole cell."""
-    import torch
-
+    eval and ``Trainer`` step on the whole cell in both modes."""
     from torch_m3gnet_tpu_torch.config import M3GNetConfig
-    from torch_m3gnet_tpu_torch.models import build_model
 
     settings = settings or {}
     cfg = M3GNetConfig(**settings)
@@ -445,13 +451,9 @@ def gp4000_data(tmp, sizes, device="cuda", settings=None, reps=cs.GP_REPS) -> di
         data["sizes"][size] = {"files": files, **shard_shapes(sharded)}
     data["host_build_s"] = time.perf_counter() - t0
     data["one_card"] = {mode: one_card_eval(cfg.replace(threebody_mode=mode), full, device)
-                        for mode in ("factorized", "fused")}
-    pot = build_model(cfg, device=device, generator=torch.Generator().manual_seed(0))
-    before, grads, after, loss = cs.trainer_step(pot, cfg, full)
-    data["one_card_step"] = {"cfg": cfg, "loss": loss,
-                             "before": [b.cpu() for b in before],
-                             "grads": [g.cpu() for g in grads]}
-    del pot, before, grads, after
+                        for mode in MODES}
+    data["one_card_step"] = {mode: cs.one_device_step(cfg.replace(threebody_mode=mode), full,
+                                                      device) for mode in MODES}
     _free(device)
     data["cell"] = {"atoms": full.num_nodes, "edges": full.num_edges,
                     "triplets": full.num_triplets}
@@ -522,7 +524,8 @@ def dp_data(tmp, sizes, device="cuda", cfg=None, structures=None) -> dict:
 
 def dp_gp_data(tmp, g4000, device="cuda", reps=cs.GP_REPS) -> dict:
     """gp-4000 and a second jitter of it (seed GP_SEED + 1) partitioned to
-    common shapes for a 2 x 2 mesh, and each on one card."""
+    common shapes for a 2 x 2 mesh, and each on one card: its E/F/S and
+    its ``Trainer`` step (factorized)."""
     from torch_m3gnet_tpu_torch.config import M3GNetConfig
     from torch_m3gnet_tpu_torch.parallel import stack_partitions
 
@@ -531,18 +534,22 @@ def dp_gp_data(tmp, g4000, device="cuda", reps=cs.GP_REPS) -> dict:
     stack = stack_partitions([g4000["full"], second], 2)
     rows = [{"shard": stack.row(r // 2).row(r % 2)} for r in range(4)]
     return {"files": _write_rows(tmp, "dp_gp", rows),
-            "one_card": [g4000["one_card"]["factorized"]["efs"],
-                         one_card_eval(cfg, second, device)["efs"]]}
+            "evals": [g4000["one_card"]["factorized"]["efs"],
+                      one_card_eval(cfg, second, device)["efs"]],
+            "steps": [g4000["one_card_step"]["factorized"],
+                      cs.one_device_step(cfg, second, device)]}
 
 
 def run_job(parts, size, inputs, platform="cuda", timeout_s=JOB_TIMEOUT_S) -> list:
     """``rank_job`` for ``parts`` on ``size`` ranks (NCCL on the card, gloo
-    on the CPU)."""
+    on the CPU, where the link probe moves ``CPU_LINK_BYTES``)."""
     from torch_m3gnet_tpu_torch.parallel import launch
 
     t0 = time.time()
+    link = LINK_BYTES if platform == "cuda" else CPU_LINK_BYTES
     ranks = launch.run("multicard_smoke:rank_job", size,
-                       {**inputs, "t0": t0, "parts": list(parts), "platform": platform},
+                       {"link_bytes": link, **inputs, "t0": t0, "parts": list(parts),
+                        "platform": platform},
                        backend="nccl" if platform == "cuda" else "gloo", timeout_s=timeout_s)
     ranks[0]["job_s"] = time.time() - t0
     return ranks
@@ -610,31 +617,24 @@ def check_gp_eval(ranks, data, size) -> dict:
     info["exchange"] = [check_exchange(r["gp_eval"]["exchange"], f"S={size} rank {r['rank']}")
                         for r in ranks]
     info["broadcast_parameters_ms"] = [r["gp_eval"]["broadcast_ms"] for r in ranks]
+    info["link"] = [r["gp_eval"]["link"] for r in ranks]
+    print(f"  S={size} links, {info['link'][0]['bytes_per_rank']} bytes a rank: "
+          + ", ".join(f"{k} {info['link'][0][k]['ms']:.3f} ms {info['link'][0][k]['gb_per_s']:.1f} "
+                      f"GB/s" for k in ("all_to_all", "all_reduce")))
     return info
 
 
 def check_gp_train(ranks, data, size) -> dict:
-    """Part 2 at ``size`` ranks against one card's ``Trainer`` step."""
-    import torch
-
-    got, ref = ranks[0]["gp_train"], data["one_card_step"]
-    same_start = all(np.array_equal(b, w.numpy()) for b, w in zip(got["before"], ref["before"]))
-    grad_err, update_err = cs.step_errors(
-        ref["cfg"], ref["grads"], [torch.as_tensor(b) for b in got["before"]],
-        [torch.as_tensor(g) for g in got["grads"]], [torch.as_tensor(a) for a in got["after"]])
-    loss_err = abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-30)
-    equal = [r["gp_train"]["weights_bitwise_equal_across_ranks"] for r in ranks]
-    print(f"  gp-4000 train step S={size}: loss {got['loss']:.6e} vs one card {ref['loss']:.6e} "
-          f"(rel {loss_err:.3e}), worst gradient rel {grad_err:.3e} tol {cs.TRAIN_TOL:.0e}, "
-          f"update {update_err:.3e} lr tol {cs.UPDATE_TOL:.0e}; same start {same_start}; "
-          f"weights bitwise equal across ranks {equal}")
-    if not (same_start and loss_err <= cs.MODEL_TOL and grad_err <= cs.TRAIN_TOL
-            and update_err <= cs.UPDATE_TOL and all(equal)):
-        raise AssertionError(f"gp-4000 train step at S={size}")
-    return {"loss": got["loss"], "one_card_loss": ref["loss"], "loss_rel_err": loss_err,
-            "grad_rel_err": grad_err, "update_err_lr": update_err,
-            "weights_bitwise_equal_across_ranks": equal,
-            "gp_train_step_ms": [r["gp_train"]["gp_train_step_ms"] for r in ranks]}
+    """Part 2 at ``size`` ranks: each mode's step against one card's
+    ``Trainer`` step on the whole cell (``chip_smoke.check_gp_step``)."""
+    out = {}
+    for mode in MODES:
+        out[mode] = cs.check_gp_step(
+            f"gp-4000 train step, {mode}, S={size}", ranks[0]["gp_train"][mode],
+            data["one_card_step"][mode],
+            [r["gp_train"][mode]["weights_bitwise_equal_across_ranks"] for r in ranks])
+        out[mode]["gp_train_step_ms"] = [r["gp_train"][mode]["step_ms"] for r in ranks]
+    return out
 
 
 def check_gp_big(by_size: dict, data) -> dict:
@@ -719,18 +719,6 @@ def one_card_cli(data, tmp, device="cuda") -> dict:
     return {"test": test, "wall_s": time.perf_counter() - t0}
 
 
-def check_dp_gp(ranks, data) -> dict:
-    errs = {}
-    for r in ranks:
-        part = r["dp_gp"]
-        if part["gp_rank"] == 0:
-            d = part["dp_row"]
-            errs[d] = efs_errors(part["efs"], data["one_card"][d], f"dp x gp 2 x 2, dp row {d}")
-    if sorted(errs) != [0, 1]:
-        raise AssertionError(f"dp x gp: rows reported {sorted(errs)}")
-    return {"rel_err": errs}
-
-
 def _plain(x):
     """JSON for numpy scalars and arrays."""
     if isinstance(x, np.generic):
@@ -741,16 +729,53 @@ def _plain(x):
 
 
 def cards_and_links(cards: int) -> tuple:
-    """(each card's ``nvidia-smi`` name and power limit, the link matrix
-    between the cards used, the link of each pair)."""
+    """(each card's ``nvidia-smi`` name and power limit, the topology matrix
+    as ``nvidia-smi topo -m`` prints it, the links between the cards used):
+    that matrix's entries where it runs, each card's active NVLinks and
+    their GB/s (``nvlink --status``), and whether CUDA gives each card peer
+    access to each other's memory."""
+    import torch
+
+    def run(*args) -> str:
+        proc = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        return (proc.stdout + proc.stderr).strip()
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
-                          timeout=60).stdout
+    topo, nvlink = run("topo", "-m"), run("nvlink", "--status")
     rows = [line.split() for line in topo.splitlines() if re.match(r"GPU\d+\s", line)]
-    links = {f"{i}-{j}": rows[i][1 + j] for i in range(min(cards, len(rows)))
-             for j in range(cards) if i != j and 1 + j < len(rows[i])}
+    per_card, card = {}, None
+    for line in nvlink.splitlines():
+        head = re.match(r"GPU (\d+):", line)
+        if head:
+            card = int(head.group(1))
+            per_card[card] = {"active": 0, "gb_per_s": 0.0}
+        rate = re.search(r"Link \d+: ([\d.]+) GB/s", line)
+        if rate and card is not None:
+            per_card[card]["active"] += 1
+            per_card[card]["gb_per_s"] += float(rate.group(1))
+    links = {"topo": {f"{i}-{j}": rows[i][1 + j] for i in range(min(cards, len(rows)))
+                      for j in range(cards) if i != j and 1 + j < len(rows[i])},
+             "nvlink_per_card": {c: v for c, v in per_card.items() if c < cards},
+             "peer_access": {f"{i}-{j}": torch.cuda.can_device_access_peer(i, j)
+                             for i in range(cards) for j in range(cards) if i != j}}
     return smi.stdout.strip().splitlines()[:cards], topo, links
+
+
+def nccl_transports(log_dir: str) -> dict:
+    """NCCL's version and the transports its channels chose (``via ...``
+    in its INFO logs, one file a process under ``log_dir``), with counts."""
+    found, versions = {}, set()
+    for path in glob.glob(os.path.join(log_dir, "nccl.*")):
+        with open(path, errors="replace") as f:
+            for line in f:
+                via = re.search(r" via (\S+)", line)
+                version = re.search(r"NCCL version (\S+)", line)
+                if via:
+                    found[via.group(1)] = found.get(via.group(1), 0) + 1
+                if version:
+                    versions.add(version.group(1))
+    return {"versions": sorted(versions), "transports": found}
 
 
 def _failure(exc) -> dict:
@@ -759,18 +784,22 @@ def _failure(exc) -> dict:
 
 
 def run_parts(cards: int, header: dict, platform: str = "cuda", settings=None,
-              reps=(cs.GP_REPS, BIG_REPS), structures=None, deadline=None) -> list:
+              reps=(cs.GP_REPS, BIG_REPS), structures=None, deadline=None,
+              only=None) -> list:
     """Parts 1-6 on ``cards`` cards (``platform="cpu"``: gloo ranks on the
     CPU, the model ``settings``, cells of ``reps`` a side and the dp set
-    ``structures``, labelled: a rehearsal); prints each part's line and
-    returns the parts that failed."""
+    ``structures``, labelled: a rehearsal), or only the parts named in
+    ``only``; prints each part's line and returns the parts that failed."""
     settings = settings or {}
+    only = set(PART_NAMES if only is None else only)
     sizes = [s for s in (2, 4) if s <= cards]
     deadline = deadline or time.time() + SCRIPT_BUDGET_S
     failed, data = [], {}
     with tempfile.TemporaryDirectory(prefix="m3g_multicard_") as tmp:
 
         def part(label, fn):
+            if label not in only:
+                return
             print(f"== {label}")
             t0 = time.perf_counter()
             try:
@@ -811,8 +840,9 @@ def run_parts(cards: int, header: dict, platform: str = "cuda", settings=None,
         def gp_job(size):  # parts 1 and 2 share one job a size
             if size not in data.setdefault("gp_jobs", {}):
                 files = g4000()["sizes"][size]["files"]
-                data["gp_jobs"][size] = job(("gp_eval", "gp_train"), size, {
-                    "gp_eval": {"files": files}, "gp_train": {"files": files}})
+                data["gp_jobs"][size] = job([p for p in ("gp_eval", "gp_train") if p in only],
+                                            size, {"gp_eval": {"files": files},
+                                                   "gp_train": {"files": files}})
             return data["gp_jobs"][size]
 
         def eval_check(ranks, size):
@@ -863,7 +893,8 @@ def run_parts(cards: int, header: dict, platform: str = "cuda", settings=None,
         def dp_gp():
             d = need("dp_gp", lambda: dp_gp_data(tmp, g4000(), platform, reps[0]))
             ranks = job(("dp_gp",), 4, {"dp_gp": {"files": d["files"]}})
-            return {"binding": check_binding(ranks, platform), **check_dp_gp(ranks, d)}
+            return {"binding": check_binding(ranks, platform),
+                    **cs.check_dp_gp([r["dp_gp"] for r in ranks], d["evals"], d["steps"])}
 
         if cards >= 4:
             part("dp_gp", dp_gp)
@@ -877,9 +908,24 @@ def dp_config(settings: dict):
     return M3GNetConfig(**settings).replace(accumulate_grad_batches=1)
 
 
-def main() -> int:
+def parse_parts(argv=None) -> list:
+    """The parts named by ``--parts a,b`` (every part without it)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port on every card of one host.")
+    ap.add_argument("--parts", default=",".join(PART_NAMES),
+                    help=f"comma-separated parts to run, of {', '.join(PART_NAMES)}")
+    names = [p for p in ap.parse_args(argv).parts.split(",") if p]
+    unknown = sorted(set(names) - set(PART_NAMES))
+    if unknown or not names:
+        ap.error(f"unknown parts {unknown}; choose from {', '.join(PART_NAMES)}")
+    return names
+
+
+def main(argv=None) -> int:
     import torch
 
+    only = parse_parts(argv)
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if count < 2:
         print(f"multicard_smoke: needs two or more CUDA devices, this host has {count}",
@@ -894,13 +940,18 @@ def main() -> int:
     print(f"== cards: {cards} x {name}; torch {torch.__version__} cuda {torch.version.cuda}")
     print("\n".join(f"  {line}" for line in smi))
     print(topo)
-    print(f"  links between the cards used: {links}")
+    print(f"  links between the cards used: {json.dumps(links)}")
     t0 = time.perf_counter()
     _cuda.build()
     _cuda.library()
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s")
-    failed = run_parts(cards, {"card": name, "nvidia_smi": smi, "cards": cards, "links": links},
-                       deadline=start + SCRIPT_BUDGET_S)
+    with tempfile.TemporaryDirectory(prefix="m3g_nccl_") as nccl_logs:
+        if "NCCL_DEBUG" not in os.environ:  # the transports each channel takes, in files
+            os.environ.update(NCCL_DEBUG="INFO",
+                              NCCL_DEBUG_FILE=os.path.join(nccl_logs, "nccl.%h.%p"))
+        failed = run_parts(cards, {"card": name, "nvidia_smi": smi, "cards": cards,
+                                   "links": links}, deadline=start + SCRIPT_BUDGET_S, only=only)
+        print(f"  NCCL: {nccl_transports(nccl_logs)}")
     print(f"  script {time.time() - start:.1f} s")
     print("\n".join(smi))
     if failed:

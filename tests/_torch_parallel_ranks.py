@@ -99,8 +99,9 @@ def gp_train(settings: dict, state: dict, modes, sharded, stack2d, steps: dict,
              ckpt_dir: str) -> dict:
     """The gp loss and every weight gradient (mean of the ranks' local
     gradients) per mode on a 4-shard mesh; the dp x gp loss and gradient on
-    a 2 x 2 mesh; ``GraphParallelTrainer`` steps and a checkpoint round
-    trip."""
+    a 2 x 2 mesh; ``GraphParallelTrainer`` steps (gp in the gather and the
+    fused mode, dp x gp on the 2 x 2 mesh in the factorized mode) and a
+    checkpoint round trip."""
     gp_mesh = make_mesh(None, "gp", "cpu")
     mesh2d = make_mesh((2, 2), ("dp", "gp"), "cpu")
     world = dist.get_world_size()
@@ -122,16 +123,24 @@ def gp_train(settings: dict, state: dict, modes, sharded, stack2d, steps: dict,
         out["loss"][mode], out["grads"][mode] = loss_and_grads(gp_mesh, mode, sharded)
     out["loss2d"], out["grads2d"] = loss_and_grads(mesh2d, "gather", stack2d, "dp")
 
-    cfg, pot = potential(settings, state, "gather")
-    cfg = cfg.replace(**steps["config"])
-    trainer = GraphParallelTrainer(pot, cfg, gp_mesh, log_dir=os.path.join(ckpt_dir, "logs"))
-    out["step_losses"] = [float(trainer.train_step(sharded, steps["lr"])["loss"])
-                          for _ in range(steps["n"])]
-    out["params"] = {k: v.numpy() for k, v in pot.model.state_dict().items()}
-    flat = torch.cat([p.detach().reshape(-1) for p in pot.parameters()])
-    parts = [torch.empty_like(flat) for _ in range(world)]
-    dist.all_gather(parts, flat)
-    out["params_equal_across_ranks"] = all(torch.equal(parts[0], p) for p in parts)
+    def trainer_steps(mode, mesh, batch, dp_axis=None, **kw):
+        cfg, pot = potential(settings, state, mode)
+        cfg = cfg.replace(**steps["config"])
+        trainer = GraphParallelTrainer(pot, cfg, mesh, dp_axis=dp_axis, **kw)
+        losses = [float(trainer.train_step(batch, steps["lr"])["loss"])
+                  for _ in range(steps["n"])]
+        flat = torch.cat([p.detach().reshape(-1) for p in pot.parameters()])
+        parts = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(parts, flat)
+        return cfg, trainer, dict(
+            step_losses=losses, params={k: v.numpy() for k, v in pot.model.state_dict().items()},
+            params_equal_across_ranks=all(torch.equal(parts[0], p) for p in parts))
+
+    cfg, trainer, row = trainer_steps("gather", gp_mesh, sharded,
+                                      log_dir=os.path.join(ckpt_dir, "logs"))
+    out.update(row)
+    out["fused_steps"] = trainer_steps("fused", gp_mesh, sharded)[2]
+    out["dp_gp_steps"] = trainer_steps("factorized", mesh2d, stack2d, "dp")[2]
     trainer.save_checkpoint(ckpt_dir, tag="last")
     live = float(trainer.eval_loss(sharded))
     _, fresh = potential(settings, state, "gather")

@@ -1,7 +1,8 @@
 """The port's graph-parallel training against the JAX package's, at float64
 on the CPU: the gp loss with forces and stress and every weight gradient
 (the double backward crosses the halo exchange twice), the dp x gp loss on
-a 2 x 2 mesh, and ``GraphParallelTrainer`` steps.
+a 2 x 2 mesh, and ``GraphParallelTrainer`` steps: gp in two modes, and
+dp x gp on the 2 x 2 mesh.
 
 JAX runs on the 8-device virtual CPU mesh (4 devices, and a 2 x 2 mesh);
 the port on four gloo ranks spawned once for the file, running
@@ -88,10 +89,17 @@ def runs(tmp_path_factory):
         for _ in range(STEPS["n"]):
             jstate, m = trainer.train_step(jstate, jsharded, STEPS["lr"])
             step_losses.append(float(m["loss"]))
+        trainer2d = jax_gs.GraphParallelTrainer(pot, tcfg, mesh2d, dp_axis="dp")
+        jstate2d = JaxTrainState(params=params, opt_state=trainer2d.opt.init(params))
+        step_losses2d = []
+        for _ in range(STEPS["n"]):
+            jstate2d, m = trainer2d.train_step(jstate2d, jstack, STEPS["lr"])
+            step_losses2d.append(float(m["loss"]))
         want = dict(loss=float(loss), grads=port_tree(grads), loss2d=float(loss2d),
                     grads2d=port_tree(grads2d), single_loss=float(single_loss),
                     single_grads=port_tree(single_grads), step_losses=step_losses,
-                    params=port_tree(jstate.params))
+                    params=port_tree(jstate.params), step_losses2d=step_losses2d,
+                    params2d=port_tree(jstate2d.params))
         ranks = job.result()
     return dict(ranks=ranks, want=want, state=state, g=g, ckpt=ckpt)
 
@@ -140,13 +148,37 @@ def test_gp_trainer_steps_match_jax(runs):
         np.testing.assert_allclose(got["params"][name], w, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
+def assert_steps(got: dict, losses, params):
+    np.testing.assert_allclose(got["step_losses"], losses, rtol=RTOL)
+    for name, w in params.items():
+        np.testing.assert_allclose(got["params"][name], w, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_gp_fused_trainer_steps_match_jax(runs):
+    """The same three steps in the fused mode (B4-B7's double backward
+    through the halo exchange) against the same JAX steps: the modes
+    compute one function."""
+    assert_steps(runs["ranks"][0]["fused_steps"], runs["want"]["step_losses"],
+                 runs["want"]["params"])
+
+
+def test_dp_gp_trainer_steps_match_jax_mesh2d(runs):
+    """Three ``GraphParallelTrainer(..., dp_axis="dp")`` steps on the 2 x 2
+    (dp, gp) mesh, one graph a dp row (factorized mode): each step's loss
+    and the weights after them, against JAX's trainer on its ``mesh2d``."""
+    assert_steps(runs["ranks"][0]["dp_gp_steps"], runs["want"]["step_losses2d"],
+                 runs["want"]["params2d"])
+
+
 def test_gp_weights_and_losses_equal_across_ranks(runs):
     """Every rank holds the same loss, the same mean gradient and, after
     the steps, bitwise the same weights."""
     r0 = runs["ranks"][0]
     for r in runs["ranks"]:
-        assert r["params_equal_across_ranks"]
+        for steps in (r, r["fused_steps"], r["dp_gp_steps"]):
+            assert steps["params_equal_across_ranks"]
         assert r["loss"] == r0["loss"] and r["step_losses"] == r0["step_losses"]
+        assert r["dp_gp_steps"]["step_losses"] == r0["dp_gp_steps"]["step_losses"]
         for mode in MODES:
             for name, g in r0["grads"][mode].items():
                 np.testing.assert_array_equal(r["grads"][mode][name], g)
