@@ -562,24 +562,22 @@ def check_kernels(src, num_nodes: int, l_max: int, n_max: int,
     return errs
 
 
-def kernel_modules():
-    from torch_m3gnet_tpu_torch.ops import (
-        factorized_stage,
-        fused_triplet,
-        sorted_segment,
-        windowed_take,
-    )
-
-    return factorized_stage, fused_triplet, windowed_take, sorted_segment
+# The hand kernels' ops, each counted as ``launch.<op>`` by ``ops._cuda.launch``.
+KERNEL_OPS = ("q_scatter", "r1_gather", "r2_gather", "fused_triplet_gate_sum", "backward_pair",
+              "windowed_take_fm", "windowed_scatter_fm", "sorted_segment_sum")
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules():
-        mod.reset_launch_counts()
+    from torch_m3gnet_tpu_torch.utils import profiling
+
+    profiling.reset_counts("launch.")
 
 
 def all_launches() -> dict[str, int]:
-    return {name: n for mod in kernel_modules() for name, n in mod.LAUNCHES.items()}
+    from torch_m3gnet_tpu_torch.utils import profiling
+
+    counts = profiling.counts()
+    return {name: counts.get(f"launch.{name}", 0) for name in KERNEL_OPS}
 
 
 def expected_launches(mode: str, nb: int, train: bool, remat: bool = False) -> dict[str, int]:

@@ -25,6 +25,7 @@ from torch_m3gnet_tpu.ops.pallas_fused_triplet import backward_pair as jpair
 from torch_m3gnet_tpu.ops.pallas_fused_triplet import fused_triplet_gate_sum as jfused
 from torch_m3gnet_tpu.ops.pallas_fused_triplet import reference_triplet_gate_sum
 from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+from torch_m3gnet_tpu_torch.utils import profiling
 
 # Pallas interpret mode contracts one-hot matrices in f32 on the CPU; the
 # plain versions gather exactly and add in another order: f32 sums of up to
@@ -246,7 +247,7 @@ def test_functions_close_under_differentiation(op):
 
 
 def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
-    ft.reset_launch_counts()
+    profiling.reset_counts("launch.")
     e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
     e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
     b, gate = torch.ones(2, 3), torch.ones(2, 3)
@@ -263,7 +264,7 @@ def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
         ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets[:3]))
     out = ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets))
     ft.backward_pair(b, gate, out, e1, e2, 3, (order, offsets))
-    assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}
+    assert not [k for k in profiling.counts() if k.startswith("launch.")]
 
 
 def _patterns(n):
@@ -303,9 +304,9 @@ def test_member_axis_matches_jax_vmap(interpret, op, case, in_dims):
         jfn = lambda b, q, c: jpair(b, q, c, je1, je2, e)  # noqa: E731
         tfn = lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, order)  # noqa: E731
     want = jax.vmap(jfn, in_axes=in_dims)(*map(jnp.asarray, floats))
-    ft.reset_launch_counts()
+    profiling.reset_counts("launch.")
     got = torch.func.vmap(tfn, in_dims=in_dims)(*map(torch.as_tensor, floats))
-    assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}
+    assert not [k for k in profiling.counts() if k.startswith("launch.")]
     want, got = (x if isinstance(x, tuple) else (x,) for x in (want, got))
     for x, y in zip(got, want):
         assert x.dtype == torch.float32 and tuple(x.shape) == y.shape and y.shape[0] == k
@@ -316,7 +317,7 @@ def test_member_axis_mismatch_raises_and_launches_nothing_on_cpu():
     """(K, LN, cols) operands go to the Function as one call; two member
     counts, a member axis on an operand of the wrong shape, or a fourth
     axis raise before anything runs."""
-    ft.reset_launch_counts()
+    profiling.reset_counts("launch.")
     e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
     e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
     order = ft.triplet_e2_order(e2, 3)
@@ -339,4 +340,4 @@ def test_member_axis_mismatch_raises_and_launches_nothing_on_cpu():
     out = ft.fused_triplet_gate_sum(b, gate3, e1, e2, 3, order)
     d_basis, d_gate = ft.backward_pair(b, gate3, out, e1, e2, 3, order)
     assert out.shape == (3, 2, 3) and d_basis.shape == (3, 2, 3) and d_gate.shape == (3, 2, 3)
-    assert ft.LAUNCHES == {"fused_triplet_gate_sum": 0, "backward_pair": 0}
+    assert not [k for k in profiling.counts() if k.startswith("launch.")]

@@ -19,6 +19,7 @@ import torch
 
 from torch_m3gnet_tpu.ops.pallas_segment import sorted_segment_sum, sorted_segment_sum_any
 from torch_m3gnet_tpu_torch.ops import sorted_segment as ss
+from torch_m3gnet_tpu_torch.utils import profiling
 
 # As tests/test_pallas_segment.py: interpret mode contracts one-hot matrices
 # in f32 through a bf16 hi/lo split; the plain version adds in another order.
@@ -126,7 +127,7 @@ def test_functions_close_under_differentiation(op, with_offsets):
 
 
 def test_wrapper_rejects_wrong_shapes_and_launches_nothing_on_cpu():
-    ss.reset_launch_counts()
+    profiling.reset_counts("launch.")
     seg = torch.tensor([0, 0, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="seg must be 1-D"):
         ss.sorted_segment_sum_fm(torch.zeros(2, 3), seg[None], 3)
@@ -138,7 +139,7 @@ def test_wrapper_rejects_wrong_shapes_and_launches_nothing_on_cpu():
         ss.sorted_segment_sum_fm(torch.zeros(2, 3), seg, 3, torch.zeros(3, dtype=torch.int32))
     out = ss.sorted_segment_sum_fm(torch.ones(2, 3), seg, 3)
     assert out.tolist() == [[2.0, 0.0, 1.0], [2.0, 0.0, 1.0]]
-    assert ss.LAUNCHES == {"sorted_segment_sum": 0}
+    assert not [k for k in profiling.counts() if k.startswith("launch.")]
 
 
 

@@ -3,8 +3,8 @@
 - ``cells``: the same maps, exactly;
 - ``debug.check_batch``: the same violations on a good batch and on four
   broken ones; ``enable_nan_checks`` turns torch's anomaly mode on and off;
-- ``profiling``: ``Throughput`` counts as JAX's does, from numpy masks and
-  from tensors; ``device_trace`` writes a Chrome trace;
+- ``profiling``: ``device_trace`` writes a Chrome trace (the spans and
+  counters are tested in ``test_torch_tracing.py``);
 - ``oracle``: the port's copy against JAX's on the same inputs (rtol
   1e-12: the same numpy arithmetic), and the port's float64 model against
   the port's oracle at rtol 1e-10, as ``tests/test_parity.py`` holds JAX's
@@ -27,10 +27,8 @@ from torch_m3gnet_tpu.models import build_model as jax_build_model
 from torch_m3gnet_tpu.utils import cells as jax_cells
 from torch_m3gnet_tpu.utils import debug as jax_debug
 from torch_m3gnet_tpu.utils import oracle as jax_oracle
-from torch_m3gnet_tpu.utils import profiling as jax_profiling
 from torch_m3gnet_tpu_torch.config import M3GNetConfig
 from torch_m3gnet_tpu_torch.data import Structure, graph_from_structure, pack_structures, pad_batch
-from torch_m3gnet_tpu_torch.data import to_torch
 from torch_m3gnet_tpu_torch.models import build_model, flax_from_params, params_from_flax
 from torch_m3gnet_tpu_torch.utils import cells, debug, oracle, profiling
 
@@ -121,26 +119,6 @@ def test_enable_nan_checks_toggles_anomaly_mode():
         assert not torch.is_anomaly_enabled()
     finally:
         torch.autograd.set_detect_anomaly(saved)
-
-
-def test_throughput_counts_as_jax():
-    js, ps = _rattled(3)
-    jb = jax_pack(js, 5.0, 4.0, pad_multiple=64)
-    pb = pack_structures(ps, 5.0, 4.0, pad_multiple=64)
-    want = jax_profiling.Throughput()
-    got, on_tensors = profiling.Throughput(), profiling.Throughput()
-    for t, b in ((want, jb), (got, pb), (on_tensors, to_torch(pb, "cpu", index=()))):
-        t.stop(b)  # not started: counts nothing
-        for _ in range(2):
-            t.start()
-            t.stop(b)
-    for t in (got, on_tensors):
-        assert (t.items, t.graphs) == (want.items, want.graphs)
-        assert t.items == 2 * (int(pb.edge_mask.sum()) + int(pb.triplet_mask.sum()))
-        assert t.graphs == 6 and t.seconds > 0
-        assert t.items_per_sec == t.items / t.seconds
-        assert t.graphs_per_sec == t.graphs / t.seconds
-    assert profiling.Throughput().items_per_sec == 0.0
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):

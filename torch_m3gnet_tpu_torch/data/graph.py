@@ -413,73 +413,88 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
     """
     import torch
 
+    from torch_m3gnet_tpu_torch.utils.profiling import count, span
+
     unknown = set(index) - set(BATCH_INDEX_FIELDS)
     if unknown:
         raise ValueError(f"unknown batch index fields {sorted(unknown)}")
-    src = batch.edge_src
-    host = not isinstance(src, torch.Tensor)
-    if host:
-        src, dst = np.asarray(src), np.asarray(batch.edge_dst)
-        n = int(np.asarray(batch.positions).shape[0])
-        send = getattr(batch, "halo_send_idx", None)
-        n_dst = num_dst_nodes or n
-        if send is not None:
-            send, recv = np.asarray(send), np.asarray(batch.halo_recv_idx)
-            n_off = len(batch.halo_offsets)
-            n_dst = n + recv.size
-            if (send.size % n_off if n_off else send.size):
-                raise ValueError(f"halo_send_idx holds {send.size} rows, not one block "
-                                 f"per ring offset of {batch.halo_offsets}")
-            for name, idx, bound in (("halo_send_idx", send, n),
-                                     ("halo_recv_idx", recv, send.size)):
-                if idx.size and (idx.min() < 0 or idx.max() >= bound):
-                    raise ValueError(f"{name} holds a row outside [0, {bound})")
-        if np.any(np.diff(src) < 0):
-            raise ValueError("edge_src must be sorted ascending")
-        node_k = getattr(batch, "triplet_node_k", None)
-        for name, idx, bound in (("edge_src", src, n), ("edge_dst", dst, n_dst),
-                                 ("triplet_node_k", node_k, n_dst)):
-            idx = np.asarray(idx if idx is not None else ())
+    with span("m3gnet.to_torch"):
+        host = not isinstance(batch.edge_src, torch.Tensor)
+        if host:
+            count("to_torch.host_batches")
+            with span("m3gnet.to_torch.check"):
+                _check_host_batch(batch, num_dst_nodes)
+
+        def conv(name, a):
+            if a is None or name in STATIC_FIELDS:
+                return a
+            if name in BATCH_INDEX_FIELDS and host:  # built below from the copied indices
+                return None
+            if not isinstance(a, torch.Tensor):
+                count("to_torch.host_bytes", np.asarray(a).nbytes)
+            if name in INDEX_FIELDS:
+                return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
+            t = torch.as_tensor(a, device=device)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            return t
+
+        with span("m3gnet.to_torch.copy"):
+            out = GraphBatch(
+                **{f.name: conv(f.name, getattr(batch, f.name, None))
+                   for f in dataclasses.fields(GraphBatch) if hasattr(batch, f.name)}
+            )
+        from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
+        from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
+
+        built = {}
+        with span("m3gnet.to_torch.index"):
+            if "edge_src_offsets" in index and out.edge_src_offsets is None:
+                built["edge_src_offsets"] = sorted_segment_offsets(out.edge_src, out.num_nodes)
+            if "triplet_e1_offsets" in index and out.triplet_e1_offsets is None:
+                built["triplet_e1_offsets"] = sorted_segment_offsets(out.triplet_e1,
+                                                                     out.num_edges)
+            if {"triplet_e2_order", "triplet_e2_offsets"} & set(index) and (
+                    out.triplet_e2_order is None or out.triplet_e2_offsets is None):
+                built["triplet_e2_order"], built["triplet_e2_offsets"] = triplet_e2_order(
+                    out.triplet_e2, out.num_edges)
+        return out.replace(**built) if built else out
+
+
+def _check_host_batch(batch, num_dst_nodes: int | None) -> None:
+    """Raise where a host batch breaks what the kernels rely on (the rules
+    of :func:`to_torch`)."""
+    src, dst = np.asarray(batch.edge_src), np.asarray(batch.edge_dst)
+    n = int(np.asarray(batch.positions).shape[0])
+    send = getattr(batch, "halo_send_idx", None)
+    n_dst = num_dst_nodes or n
+    if send is not None:
+        send, recv = np.asarray(send), np.asarray(batch.halo_recv_idx)
+        n_off = len(batch.halo_offsets)
+        n_dst = n + recv.size
+        if (send.size % n_off if n_off else send.size):
+            raise ValueError(f"halo_send_idx holds {send.size} rows, not one block "
+                             f"per ring offset of {batch.halo_offsets}")
+        for name, idx, bound in (("halo_send_idx", send, n),
+                                 ("halo_recv_idx", recv, send.size)):
             if idx.size and (idx.min() < 0 or idx.max() >= bound):
-                raise ValueError(f"{name} holds a node index outside [0, {bound})")
-        e1, e2 = np.asarray(batch.triplet_e1), np.asarray(batch.triplet_e2)
-        if np.any(np.diff(e1) < 0):
-            raise ValueError("triplet_e1 must be sorted ascending")
-        for name, idx in (("triplet_e1", e1), ("triplet_e2", e2)):
-            if idx.size and (idx.min() < 0 or idx.max() >= src.size):
-                raise ValueError(f"{name} holds an edge index outside [0, {src.size})")
-        node_graph, nb = np.asarray(batch.node_graph), int(np.asarray(batch.lattice).shape[0])
-        if np.any(np.diff(node_graph) < 0):
-            raise ValueError("node_graph must be sorted ascending")
-        if node_graph.size and (node_graph.min() < 0 or node_graph.max() >= nb):
-            raise ValueError(f"node_graph holds a graph index outside [0, {nb})")
-
-    def conv(name, a):
-        if a is None or name in STATIC_FIELDS:
-            return a
-        if name in BATCH_INDEX_FIELDS and host:  # built below from the copied indices
-            return None
-        if name in INDEX_FIELDS:
-            return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
-        t = torch.as_tensor(a, device=device)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t
-
-    out = GraphBatch(
-        **{f.name: conv(f.name, getattr(batch, f.name, None))
-           for f in dataclasses.fields(GraphBatch) if hasattr(batch, f.name)}
-    )
-    from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
-    from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
-
-    built = {}
-    if "edge_src_offsets" in index and out.edge_src_offsets is None:
-        built["edge_src_offsets"] = sorted_segment_offsets(out.edge_src, out.num_nodes)
-    if "triplet_e1_offsets" in index and out.triplet_e1_offsets is None:
-        built["triplet_e1_offsets"] = sorted_segment_offsets(out.triplet_e1, out.num_edges)
-    if {"triplet_e2_order", "triplet_e2_offsets"} & set(index) and (
-            out.triplet_e2_order is None or out.triplet_e2_offsets is None):
-        built["triplet_e2_order"], built["triplet_e2_offsets"] = triplet_e2_order(
-            out.triplet_e2, out.num_edges)
-    return out.replace(**built) if built else out
+                raise ValueError(f"{name} holds a row outside [0, {bound})")
+    if np.any(np.diff(src) < 0):
+        raise ValueError("edge_src must be sorted ascending")
+    node_k = getattr(batch, "triplet_node_k", None)
+    for name, idx, bound in (("edge_src", src, n), ("edge_dst", dst, n_dst),
+                             ("triplet_node_k", node_k, n_dst)):
+        idx = np.asarray(idx if idx is not None else ())
+        if idx.size and (idx.min() < 0 or idx.max() >= bound):
+            raise ValueError(f"{name} holds a node index outside [0, {bound})")
+    e1, e2 = np.asarray(batch.triplet_e1), np.asarray(batch.triplet_e2)
+    if np.any(np.diff(e1) < 0):
+        raise ValueError("triplet_e1 must be sorted ascending")
+    for name, idx in (("triplet_e1", e1), ("triplet_e2", e2)):
+        if idx.size and (idx.min() < 0 or idx.max() >= src.size):
+            raise ValueError(f"{name} holds an edge index outside [0, {src.size})")
+    node_graph, nb = np.asarray(batch.node_graph), int(np.asarray(batch.lattice).shape[0])
+    if np.any(np.diff(node_graph) < 0):
+        raise ValueError("node_graph must be sorted ascending")
+    if node_graph.size and (node_graph.min() < 0 or node_graph.max() >= nb):
+        raise ValueError(f"node_graph holds a graph index outside [0, {nb})")

@@ -16,7 +16,9 @@ The kernel ops run their hand-written CUDA kernels on a CUDA device and
 their plain versions on the CPU. The sums over sorted ids run through
 ``ops.sorted_segment``: the node aggregation by ``edge_src``, the gather-mode
 triplet->edge sum by ``triplet_e1``, the forces by ``edge_src`` and the
-strain stress by ``edge_graph``.
+strain stress by ``edge_graph``. While a torch profiler records, the
+stage's set-up and each block's aggregation run inside ``m3gnet.threebody``
+spans (``utils.profiling``): 1 + ``num_blocks`` a forward.
 
 - :func:`edge_vectors_fm` builds the (3, E) pair vectors from positions,
   cell shifts and lattices;
@@ -91,6 +93,7 @@ from torch_m3gnet_tpu_torch.ops.halo import (
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, segment_sum_fm, take_fm
 from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets, sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_take_fm
+from torch_m3gnet_tpu_torch.utils.profiling import span
 
 THREEBODY_MODES = ("factorized", "fused", "gather")
 PALLAS_SEGMENT = ("auto", "on", "off")
@@ -247,10 +250,11 @@ class M3GNet(nn.Module):
         ew_fm = smooth_radial_basis_fm(dist, n_max, rc).to(cdtype)  # (n, E)
         e_fm = F.silu(self.edge_init(ew_fm))  # (D, E)
 
-        if self.threebody_mode == "factorized":
-            triplet_aggregate = self._factorized_stage(graph, r_fm, dist, cdtype, group)
-        else:
-            triplet_aggregate = self._triplet_stage(graph, r_fm, dist, cdtype, group)
+        with span("m3gnet.threebody"):
+            if self.threebody_mode == "factorized":
+                triplet_aggregate = self._factorized_stage(graph, r_fm, dist, cdtype, group)
+            else:
+                triplet_aggregate = self._triplet_stage(graph, r_fm, dist, cdtype, group)
         if self.remat_triplets if remat is None else remat:
             stage = triplet_aggregate
 
@@ -261,7 +265,9 @@ class M3GNet(nn.Module):
         # --- interaction blocks
         for b in range(self.num_blocks):
             gate_fm = torch.sigmoid(getattr(self, f"three_gate_{b}")(v_fm))  # (ln, N)
-            e_fm = e_fm + getattr(self, f"three_mlp_{b}")(triplet_aggregate(gate_fm))
+            with span("m3gnet.threebody"):
+                aggregated = triplet_aggregate(gate_fm)
+            e_fm = e_fm + getattr(self, f"three_mlp_{b}")(aggregated)
 
             vi = take_fm(v_fm, src)
             vj = take_dst_fm(v_fm, graph, dst, group)

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from torch_m3gnet_tpu_torch.utils import profiling
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -160,14 +162,14 @@ def is_cuda(name: str, floats, indices) -> bool:
     return True
 
 
-def launch(counts: dict, name: str, entry: str, device, *args) -> None:
+def launch(name: str, entry: str, device, *args) -> None:
     """Call C entry ``entry`` with ``args`` (pointers and sizes as ints) on
     the current stream of ``device``, raise on a CUDA error, and add one to
-    ``counts[name]``."""
+    the counter ``launch.<name>`` (``utils.profiling``)."""
     import torch
 
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    counts[name] += 1
+    profiling.count(f"launch.{name}")

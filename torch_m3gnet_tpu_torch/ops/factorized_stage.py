@@ -37,7 +37,8 @@ of each kernel, whose member axis reads a shared operand once (member
 stride 0). ``src`` is never batched. On the CPU each member runs the plain
 version.
 
-``LAUNCHES`` counts the kernel launches of each op (CUDA path only).
+Each kernel launch adds one to the counter ``launch.<op>`` of
+``utils.profiling`` (CUDA path only).
 """
 
 from __future__ import annotations
@@ -53,13 +54,6 @@ from torch_m3gnet_tpu_torch.ops.segment import segment_sum_fm, take_fm
 # The kernels are instantiated for these sizes (csrc/factorized_stage.cu).
 KERNEL_MAX_L = 4
 KERNEL_MAX_N = 4
-
-LAUNCHES = {"q_scatter": 0, "r1_gather": 0, "r2_gather": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 @lru_cache(maxsize=None)
@@ -143,7 +137,7 @@ def _launch(name, in0, in1, src, scratch, out_shape, k, num_edges, num_nodes, l_
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
     (x, x_stride), (y, y_stride) = (_vmap.kernel_operand(t) for t in (in0, in1))
-    _cuda.launch(LAUNCHES, name, f"m3g_{name}", out.device, x.data_ptr(), y.data_ptr(),
+    _cuda.launch(name, f"m3g_{name}", out.device, x.data_ptr(), y.data_ptr(),
                  src.data_ptr(), *scratch, out.data_ptr(), num_edges, num_nodes, l_max, n_max,
                  k or 1, x_stride, y_stride)
     return out

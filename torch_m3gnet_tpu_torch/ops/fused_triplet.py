@@ -43,8 +43,9 @@ each operand passed once with its member stride (0 where the members share
 it), the outputs K contiguous slabs, each bitwise equal to that member's own
 call. On the CPU the plain version runs per member.
 
-``LAUNCHES`` counts the calls of each op that launch its kernel (CUDA path
-only): one per call, whatever K.
+Each call that launches an op's kernel adds one to the counter
+``launch.<op>`` of ``utils.profiling`` (CUDA path only): one per call,
+whatever K.
 """
 
 from __future__ import annotations
@@ -56,13 +57,6 @@ from torch_m3gnet_tpu_torch.ops.segment import segment_sum_fm, take_fm
 
 # The forward kernel is instantiated for LN = 1..16 rows (csrc/fused_triplet.cu).
 KERNEL_MAX_ROWS = 16
-
-LAUNCHES = {"fused_triplet_gate_sum": 0, "backward_pair": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +142,7 @@ def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
     (b, b_stride), (g, g_stride) = (_vmap.kernel_operand(x) for x in (basis_fm, gate_e_fm))
     # the offsets pass runs once for every member: e1 is shared
     offsets = torch.empty(num_edges + 1, dtype=torch.int32, device=out.device)
-    _cuda.launch(LAUNCHES, name, "m3g_fused_triplet_gate_sum", out.device,
+    _cuda.launch(name, "m3g_fused_triplet_gate_sum", out.device,
                  b.data_ptr(), g.data_ptr(), e1.data_ptr(), e2.data_ptr(), offsets.data_ptr(),
                  out.data_ptr(), rows, num_edges, t, k or 1, b_stride, g_stride)
     return out
@@ -170,7 +164,7 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
     d_gate = torch.empty((*lead, rows, num_edges), dtype=torch.float32, device=dev)
     (b, b_stride), (q, q_stride), (c, c_stride) = (
         _vmap.kernel_operand(x) for x in (basis_fm, gate_e_fm, g))
-    _cuda.launch(LAUNCHES, name, "m3g_backward_pair", dev,
+    _cuda.launch(name, "m3g_backward_pair", dev,
                  b.data_ptr(), q.data_ptr(), c.data_ptr(), e1.data_ptr(), e2.data_ptr(),
                  order.data_ptr(), off2.data_ptr(), d_basis.data_ptr(), d_gate.data_ptr(),
                  rows, num_edges, t, k or 1, b_stride, q_stride, c_stride)

@@ -29,7 +29,8 @@ Under ``torch.func`` (``vmap``, ``grad``, ``vjp``) the Functions take
 ``data`` with a leading member axis, (K, F, M), which folds into the rows:
 one launch for every member (``ops._vmap``).
 
-``LAUNCHES`` counts the calls that launch the kernel (CUDA path only).
+Each call that launches the kernel adds one to the counter
+``launch.sorted_segment_sum`` of ``utils.profiling`` (CUDA path only).
 """
 
 from __future__ import annotations
@@ -37,13 +38,6 @@ from __future__ import annotations
 import torch
 
 from torch_m3gnet_tpu_torch.ops import _cuda, _vmap
-
-LAUNCHES = {"sorted_segment_sum": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def sorted_segment_sum_fm_plain(data_fm: torch.Tensor, seg: torch.Tensor,
@@ -90,7 +84,7 @@ def _forward(data_fm, seg, num_segments, offsets):
         offsets = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
     # The kernel tiles the rows as for one member's f, so that each member
     # is summed in the order of a call on its own.
-    _cuda.launch(LAUNCHES, name, "m3g_sorted_segment_sum", dev, rows.data_ptr(),
+    _cuda.launch(name, "m3g_sorted_segment_sum", dev, rows.data_ptr(),
                  seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows.shape[0], m,
                  num_segments, int(given), f)
     return out

@@ -31,7 +31,8 @@ Under ``torch.func`` the Functions take their values with a leading member
 axis, (K, F, ·), which folds into the rows: one launch for every member
 (``ops._vmap``).
 
-``LAUNCHES`` counts the kernel launches of each op (CUDA path only).
+Each kernel launch adds one to the counter ``launch.<op>`` of
+``utils.profiling`` (CUDA path only).
 """
 
 from __future__ import annotations
@@ -40,13 +41,6 @@ import torch
 
 from torch_m3gnet_tpu_torch.ops import _cuda, _vmap
 from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
-
-LAUNCHES = {"windowed_take_fm": 0, "windowed_scatter_fm": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def take_fm_plain(data_fm: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -94,7 +88,7 @@ def _take_forward(data_fm, idx):
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
     rows = rows.contiguous()
-    _cuda.launch(LAUNCHES, "windowed_take_fm", "m3g_windowed_take", out.device,
+    _cuda.launch("windowed_take_fm", "m3g_windowed_take", out.device,
                  rows.data_ptr(), idx.data_ptr(), out.data_ptr(), rows.shape[0], e, t)
     return out
 
@@ -113,7 +107,7 @@ def _scatter_forward(vals_fm, idx, num_edges, order, offsets):
         order, offsets = triplet_e2_order(idx, num_edges)
     out = torch.empty((*lead, f, num_edges), dtype=torch.float32, device=vals_fm.device)
     rows = rows.contiguous()
-    _cuda.launch(LAUNCHES, name, "m3g_windowed_scatter", out.device, rows.data_ptr(),
+    _cuda.launch(name, "m3g_windowed_scatter", out.device, rows.data_ptr(),
                  None if order is None else order.data_ptr(), offsets.data_ptr(),
                  out.data_ptr(), rows.shape[0], num_edges, t)
     return out

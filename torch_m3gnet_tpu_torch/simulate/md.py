@@ -4,8 +4,9 @@ Counterpart of ``torch_m3gnet_tpu.simulate.md``, with the loop structure of
 :mod:`~torch_m3gnet_tpu_torch.simulate.relax`: every structure of one padded
 batch advances in lockstep; the host rebuilds the skin-padded neighbour list
 every ``rebuild_every`` steps and moves the batch to the device once per
-rebuild; the steps between are a Python loop of device operations with no
-host synchronisation. Per-step logs go into device tensors allocated before
+rebuild (the span ``m3gnet.md.rebuild`` while a torch profiler records);
+the steps between are a Python loop of device operations with no host
+synchronisation. Per-step logs go into device tensors allocated before
 the loop and come back to the host once per rebuild. Forces come from one
 call of the potential per step (autograd inside it), detached.
 
@@ -44,6 +45,7 @@ from torch_m3gnet_tpu_torch.data.graph import GraphBatch
 from torch_m3gnet_tpu_torch.data.structure import Structure
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum
 from torch_m3gnet_tpu_torch.simulate.relax import build_batch, device_batch, forces_stress
+from torch_m3gnet_tpu_torch.utils.profiling import span
 
 KB = 8.617333262e-5  # Boltzmann constant, eV/K
 FORCE_TO_ACC = 9.648533212e-3  # (eV/A) / amu  ->  A/fs^2
@@ -244,14 +246,16 @@ def run_md(
     with torch.no_grad():
         for outer in range(n_outer):
             n_steps = min(config.rebuild_every, config.n_steps - outer * config.rebuild_every)
-            graphs, host = build_batch(structures, positions, lattices, cutoff + config.skin,
-                                       threebody_cutoff, pad_multiple, dtype=dtype)
-            batch = device_batch(potential, host)
-            vel_pad = np.zeros((batch.num_nodes, 3))
-            vel_cat = np.concatenate(velocities, axis=0)
-            vel_pad[: len(vel_cat)] = vel_cat
-            vel0, masses = (torch.as_tensor(a, dtype=param.dtype, device=param.device)
-                            for a in (vel_pad, node_masses(host)))
+            with span("m3gnet.md.rebuild"):
+                graphs, host = build_batch(structures, positions, lattices,
+                                           cutoff + config.skin, threebody_cutoff, pad_multiple,
+                                           dtype=dtype)
+                batch = device_batch(potential, host)
+                vel_pad = np.zeros((batch.num_nodes, 3))
+                vel_cat = np.concatenate(velocities, axis=0)
+                vel_pad[: len(vel_cat)] = vel_cat
+                vel0, masses = (torch.as_tensor(a, dtype=param.dtype, device=param.device)
+                                for a in (vel_pad, node_masses(host)))
             pos, vel, lat, logs = _md_inner(potential, batch, vel0, masses, gen, config, n_steps)
             pos, vel, lat = (t.cpu().double().numpy() for t in (pos, vel, lat))
             logs_all.append([t.cpu().double().numpy() for t in logs])

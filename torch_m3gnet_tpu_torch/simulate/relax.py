@@ -43,6 +43,7 @@ from torch_m3gnet_tpu_torch.data.graph import (
 )
 from torch_m3gnet_tpu_torch.data.structure import Structure
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum
+from torch_m3gnet_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -79,20 +80,23 @@ def build_batch(structures: Sequence[Structure], positions, lattices, cutoff: fl
                 threebody_cutoff: float, pad_multiple: int, dtype=np.float64):
     """The host graphs of ``structures`` at ``positions`` and ``lattices``
     (neighbour list at ``cutoff``, which the callers widen by their skin)
-    and their padded batch: one rebuild's host work."""
-    graphs = [
-        graph_from_structure(Structure(lat, p, s.atomic_numbers), cutoff, threebody_cutoff,
-                             dtype=dtype)
-        for s, p, lat in zip(structures, positions, lattices)
-    ]
-    cat = batch_graphs(graphs)
-    return graphs, pad_batch(
-        cat,
-        round_up(cat.num_nodes + 1, pad_multiple),
-        round_up(cat.num_edges + 1, pad_multiple),
-        round_up(cat.num_triplets + 1, pad_multiple),
-        cat.num_graphs,
-    )
+    and their padded batch: one rebuild's host work, in the spans
+    ``m3gnet.build_batch.graphs`` and ``m3gnet.build_batch.pad``."""
+    with span("m3gnet.build_batch.graphs"):
+        graphs = [
+            graph_from_structure(Structure(lat, p, s.atomic_numbers), cutoff, threebody_cutoff,
+                                 dtype=dtype)
+            for s, p, lat in zip(structures, positions, lattices)
+        ]
+    with span("m3gnet.build_batch.pad"):
+        cat = batch_graphs(graphs)
+        return graphs, pad_batch(
+            cat,
+            round_up(cat.num_nodes + 1, pad_multiple),
+            round_up(cat.num_edges + 1, pad_multiple),
+            round_up(cat.num_triplets + 1, pad_multiple),
+            cat.num_graphs,
+        )
 
 
 def device_batch(potential, batch: GraphBatch) -> GraphBatch:

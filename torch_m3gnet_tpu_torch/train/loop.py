@@ -47,6 +47,7 @@ from torch_m3gnet_tpu_torch.config import M3GNetConfig
 from torch_m3gnet_tpu_torch.data.graph import to_torch
 from torch_m3gnet_tpu_torch.train.metrics import MetricAccumulator
 from torch_m3gnet_tpu_torch.train.prefetch import device_prefetch
+from torch_m3gnet_tpu_torch.utils.profiling import span
 
 
 def masked_mse(pred, target, mask):
@@ -183,11 +184,18 @@ class Trainer:
     # ------------------------------------------------------------------
     def train_step(self, batch, lr: Optional[float] = None) -> dict[str, torch.Tensor]:
         """One optimizer step (or one accumulation step) on ``batch``;
-        returns the batch's metrics, computed before the update."""
+        returns the batch's metrics, computed before the update. Its phases
+        are the spans ``m3gnet.train.loss``, ``.grad`` and ``.adam`` while a
+        torch profiler records."""
         if lr is not None:
             self.set_lr(lr)
-        loss, metrics = loss_and_metrics(self.potential, batch, self.config, create_graph=True)
-        self.apply_gradients(self.gradients(loss))
+        with span("m3gnet.train.loss"):
+            loss, metrics = loss_and_metrics(self.potential, batch, self.config,
+                                             create_graph=True)
+        with span("m3gnet.train.grad"):
+            grads = self.gradients(loss)
+        with span("m3gnet.train.adam"):
+            self.apply_gradients(grads)
         return _detached(metrics)
 
     def gradients(self, loss) -> list[torch.Tensor]:

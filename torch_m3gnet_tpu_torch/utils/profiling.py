@@ -1,46 +1,55 @@
-"""Profiling helpers (counterpart of ``torch_m3gnet_tpu.utils.profiling``):
-a step counter of edges+triplets/s (the bench metric) and graphs/s, and a
-``torch.profiler`` trace context whose trace TensorBoard's profiler plugin
-or Perfetto opens.
+"""The port's spans and counters, and a ``torch.profiler`` trace context.
+
+- :func:`span` names a stretch of host work (``m3gnet.<part>``) in the
+  profiler's own timeline, where it shares its clock with the device
+  records. It records only while a torch profiler runs (the benchmark's
+  traced window, :func:`device_trace`); otherwise it returns one shared
+  null context and costs one check of the profiler's state. A span never
+  synchronises the device.
+- :func:`count` adds to one registry of named integers, always on: the
+  kernel launches of the hand kernels (``launch.<op>``, bumped by
+  ``ops._cuda.launch``) and the host bytes that ``data.to_torch`` converts
+  (``to_torch.host_bytes``, ``to_torch.host_batches``).
+- :func:`device_trace` writes a Chrome trace that TensorBoard's profiler
+  plugin or Perfetto opens; it carries the spans.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from dataclasses import dataclass
+import threading
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+_NULL = contextlib.nullcontext()
+_COUNTS: dict[str, int] = {}
+_LOCK = threading.Lock()  # the prefetch producer and the autograd engine count too
 
 
-@dataclass
-class Throughput:
-    """Running edges+triplets/sec (and graphs/sec) counter."""
+def span(name: str):
+    """A context that records ``name`` in the running profiler's timeline;
+    the shared null context when no profiler runs."""
+    return record_function(name) if _profiler_enabled() else _NULL
 
-    items: int = 0
-    graphs: int = 0
-    seconds: float = 0.0
-    _t0: float | None = None
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
 
-    def stop(self, batch) -> None:
-        """Account one completed step on ``batch``. The device runs ahead of
-        the host: call ``torch.cuda.synchronize()`` before this, or the time
-        is that of the launches. The masks may be numpy arrays or tensors."""
-        if self._t0 is None:
-            return
-        self.seconds += time.perf_counter() - self._t0
-        self._t0 = None
-        self.items += int(batch.edge_mask.sum()) + int(batch.triplet_mask.sum())
-        self.graphs += int(batch.graph_mask.sum())
 
-    @property
-    def items_per_sec(self) -> float:
-        return self.items / self.seconds if self.seconds else 0.0
+def counts() -> dict[str, int]:
+    """A copy of every counter."""
+    with _LOCK:
+        return dict(_COUNTS)
 
-    @property
-    def graphs_per_sec(self) -> float:
-        return self.graphs / self.seconds if self.seconds else 0.0
+
+def reset_counts(prefix: str = "") -> None:
+    """Drop the counters whose name starts with ``prefix`` (all by default)."""
+    with _LOCK:
+        for name in [k for k in _COUNTS if k.startswith(prefix)]:
+            del _COUNTS[name]
 
 
 @contextlib.contextmanager
