@@ -39,7 +39,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    members, B7 with 4 x 65,540 rows and B8 with 70,400 rows (short runs
    and long ones), past the 65,535 blocks of a grid's y axis, against
    their plain versions, the members at each slice bound bitwise their own
-   calls;
+   calls; then the index check of a host batch (``ops.batch_check``) at a
+   tiny batch's sizes and a screen batch's, the kernel giving the plain
+   version's word on the clean arrays and on every fault case of
+   ``batch_check_faults``, and its time at the screen sizes against its
+   bound (the ``{"batch_check": ...}`` line; at least ``CHECK_MIN_SHARE``);
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -1162,6 +1166,163 @@ def check_grid_slices() -> None:
              lambda d: ss.sorted_segment_sum_fm(d, seg, nseg), [data], (0,), want, 1)
         del data, want
     print(f"  grid slices checked in {time.perf_counter() - t0:.1f} s")
+
+
+# The index check of a host batch (ops.batch_check, csrc/batch_check.cu) at
+# a tiny batch's sizes, with a halo plan and ragged tails, and at one screen
+# batch's (the benchmark's mix: N 16,384, E 751,104, T 7,205,888, B 102 graphs).
+# n, e, t, b: nodes, edges, triplets, graphs; h: halo rows sent (in two ring
+# blocks) and halo slots received, 0 for none.
+BATCH_CHECK_SIZES = {
+    "tiny": dict(n=4_501, e=9_003, t=30_003, b=5, h=6),
+    "screen": dict(n=16_384, e=751_104, t=7_205_888, b=102, h=0),
+}
+# int32 elements of one block's tile in csrc/batch_check.cu (16 KB; 2,048
+# int64), of one pass of its 256 threads' 16-byte loads, and of a warp's.
+CHECK_TILE, CHECK_PASS, CHECK_WARP = 4096, 1024, 128
+# The kernel's share of its bound at a screen batch, at least.
+CHECK_MIN_SHARE = 0.5
+
+
+def batch_check_rules(sizes: dict, device) -> list:
+    """A valid set of a batch's index arrays, in to_torch's order of rules:
+    the sorted ones non-decreasing over [0, bound), the others spread over
+    it, all int32 on ``device``."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops.batch_check import IndexRule
+
+    n, e, t, b, h = (sizes[k] for k in "netbh")
+
+    def ascending(length, bound):
+        return (torch.arange(length, device=device) * bound // length).to(torch.int32)
+
+    def spread(length, bound):
+        return ((torch.arange(length, device=device) * 7919 + 13) % bound).to(torch.int32)
+
+    n_dst = n + h
+    rules = []
+    if h:
+        rules += [IndexRule("halo_send_idx", spread(h, n), n, False, "a row"),
+                  IndexRule("halo_recv_idx", spread(h, h), h, False, "a row")]
+    return rules + [
+        IndexRule("edge_src", ascending(e, n), n, True, "a node index"),
+        IndexRule("edge_dst", spread(e, n_dst), n_dst, False, "a node index"),
+        IndexRule("triplet_node_k", spread(t, n_dst), n_dst, False, "a node index"),
+        IndexRule("triplet_e1", ascending(t, e), e, True, "an edge index"),
+        IndexRule("triplet_e2", spread(t, e), e, False, "an edge index"),
+        IndexRule("node_graph", ascending(n, b), b, True, "a graph index"),
+    ]
+
+
+def batch_check_faults(rules) -> list:
+    """One fault a case: (label, rule position, {element: value}, int64,
+    the word it must give). Each array gets values outside its bound at its
+    first and last element and where the first tile ends, and an int64
+    value that an int32 cast would wrap into range; each sorted array a
+    single descent at its first and last pair, across a warp, a block's
+    pass, the first tile's end (the block boundary), and into its ragged
+    tail; every other element keeps to its rules."""
+    cases = []
+    for i, r in enumerate(rules):
+        x = r.index.cpu().long()
+        length, order, rng = len(x), 1 << 2 * i, 1 << (2 * i + 1)
+        cases += [(f"{r.name} -1 at 0", i, {0: -1}, False, rng),
+                  (f"{r.name} bound at the end", i, {length - 1: r.bound}, False, rng),
+                  (f"{r.name} 2**32 + 1 as int64", i, {length // 2: 2**32 + 1}, True,
+                   rng | (order if r.sorted else 0))]
+        if length > CHECK_TILE + 1:
+            # in a sorted array the value also breaks the order there
+            cases.append((f"{r.name} bound at the first tile's end", i, {CHECK_TILE: r.bound},
+                           False, rng | (order if r.sorted else 0)))
+        if not r.sorted:
+            continue
+        pairs = {"first pair": 0, "last pair": length - 2,
+                 "warp boundary": CHECK_WARP - 1, "pass boundary": CHECK_PASS - 1,
+                 "block boundary": CHECK_TILE - 1, "into the tail": length // 4 * 4 - 1}
+        for label, j in pairs.items():
+            if 0 <= j < length - 1:
+                cases.append((f"{r.name} descends at the {label} ({j})", i,
+                              _descent(x, j), False, order))
+        j = CHECK_TILE // 2 - 1  # the block boundary of an int64 array
+        if j < length - 1:
+            cases.append((f"{r.name} descends at the int64 block boundary ({j})", i,
+                          _descent(x, j), True, order))
+    return cases
+
+
+def _descent(x, j: int) -> dict:
+    """Values for elements j, j + 1 of the non-decreasing ``x`` (a CPU int64
+    tensor) such that x[j] > x[j + 1] is its only descent and every value
+    stays within [0, max(x) + 1]."""
+    a, b = int(x[j]), int(x[j + 1])
+    return {j + 1: a - 1} if a >= 1 else {j: b + 1}
+
+
+def check_batch_index(sizes: dict, device: str = "cuda") -> dict:
+    """The index check on ``sizes`` (BATCH_CHECK_SIZES): the clean rules give
+    0, and each fault of :func:`batch_check_faults` gives its word, from the
+    plain version on ``device`` and, on CUDA, from the kernel; returns
+    {"cases": n}."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import batch_check as bc
+
+    rules = batch_check_rules(sizes, device)
+    cuda = torch.device(device).type == "cuda"
+
+    def words(rs):
+        plain = bc.index_word_plain(rs)
+        return plain, (bc.index_word(rs) if cuda else plain)
+
+    if words(rules) != (0, 0):
+        raise AssertionError(f"batch check: the clean rules give {words(rules)}, expected 0")
+    cases = batch_check_faults(rules)
+    for label, i, values, wide, want in cases:
+        x = rules[i].index.to(torch.int64) if wide else rules[i].index.clone()
+        for j, v in values.items():
+            x[j] = v
+        got = words([*rules[:i], rules[i]._replace(index=x), *rules[i + 1:]])
+        if got != (want, want):
+            raise AssertionError(f"batch check, {label}: (plain, kernel) words {got}, "
+                                 f"expected {want}")
+    print(f"  batch check at {sizes}: the clean batch passes and {len(cases)} faults give "
+          f"their words{' (kernel and plain version)' if cuda else ''}")
+    return {"cases": len(cases)}
+
+
+def time_batch_check(name: str, flush) -> dict:
+    """The kernel at one screen batch's sizes: its device time (clean
+    flush, median of 30) alone and with the word's memset (``call_us``), against
+    its bound (every index read once at the card's bandwidth), and the
+    plain version's on the card (host clock, median of 5: its reductions
+    read each result back); raises below CHECK_MIN_SHARE of the bound."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import batch_check as bc
+
+    rules = batch_check_rules(BATCH_CHECK_SIZES["screen"], "cuda")
+    nbytes = sum(r.index.numel() * r.index.element_size() for r in rules)
+    bound_us = nbytes / bandwidth(name) * 1e6
+    call = lambda: bc.index_word_device(rules)  # noqa: E731
+    call_us = time_device(call, flush) * 1e3
+    parts = kernel_parts(call, flush)
+    (kernel_us,) = [v for k, v in parts.items() if "check_batch_index" in k]
+    plain = []
+    for _ in range(5):
+        flush_l2(flush, "clean")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bc.index_word_plain(rules)
+        plain.append((time.perf_counter() - t0) * 1e6)
+    row = {"bytes": nbytes, "bound_us": bound_us, "kernel_us": kernel_us, "call_us": call_us,
+           "share": bound_us / kernel_us, "plain_us": statistics.median(plain),
+           "parts_us": parts}
+    print(json.dumps({"batch_check": row}))
+    if row["share"] < CHECK_MIN_SHARE:
+        raise AssertionError(f"batch check: {kernel_us:.2f} us, {row['share']:.0%} of its "
+                             f"bound {bound_us:.2f} us, under {CHECK_MIN_SHARE:.0%}")
+    return row
 
 
 def teacher_batch(cfg, batch, gbatch):
@@ -4160,6 +4321,11 @@ def main() -> int:
     check_sorted_index_cases()
     check_member_rules(gbatch, cfg)
     check_grid_slices()
+    for sizes in BATCH_CHECK_SIZES.values():
+        check_batch_index(sizes)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda").zero_()  # 256 MB > L2
+    time_batch_check(name, flush)
+    del flush
 
     print("== 4. model, factorized mode (default config, seeded weights, bench batch)")
     pot = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))

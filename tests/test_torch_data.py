@@ -6,6 +6,7 @@ list, the one the port copies.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 from torch_m3gnet_tpu.data.graph import pack_structures as jax_pack
 from torch_m3gnet_tpu_torch.data import GraphBatch, Structure, pack_structures, to_torch
 from torch_m3gnet_tpu_torch.data.graph import BATCH_INDEX_FIELDS
+from torch_m3gnet_tpu_torch.utils import profiling
 
 
 
@@ -108,6 +110,81 @@ def test_to_torch_checks_node_graph(al_fcc, na_bcc, bad, match):
     node_graph = {"reverse": ng[::-1].copy(), "past-end": ng + 3, "negative": ng - 1}[bad]
     with pytest.raises(ValueError, match=match):
         to_torch(batch.replace(node_graph=node_graph), "cpu")
+
+
+def _halo(batch):
+    """``batch`` as one shard with a halo plan: 2 ring offsets of 2 sent
+    rows, 4 halo slots, so destinations lie in [0, N + 4)."""
+    return batch.replace(halo_send_idx=np.arange(4, dtype=np.int32),
+                         halo_recv_idx=np.arange(4, dtype=np.int32)[::-1].copy(),
+                         halo_offsets=(1, 2))
+
+
+def _set(a, i, value, dtype=None):
+    out = np.array(a, dtype=dtype or a.dtype)
+    out[i] = value
+    return out
+
+
+# (field breaks its rule, the message, in the order the rules are checked),
+# each a function of the packed batch b with N nodes, E edges, B graphs;
+# "halo" cases run on _halo(b).
+RULE_CASES = {
+    "halo-blocks": (True, lambda b: {"halo_send_idx": np.arange(3, dtype=np.int32)},
+                    lambda b: "halo_send_idx holds 3 rows, not one block per ring offset "
+                              "of (1, 2)"),
+    "halo-send-range": (True, lambda b: {"halo_send_idx": _set(np.arange(4), 3, b.num_nodes,
+                                                               np.int32)},
+                        lambda b: f"halo_send_idx holds a row outside [0, {b.num_nodes})"),
+    "halo-recv-range": (True, lambda b: {"halo_recv_idx": _set(np.arange(4), 0, -1, np.int32)},
+                        lambda b: "halo_recv_idx holds a row outside [0, 4)"),
+    "src-order": (False, lambda b: {"edge_src": _set(b.edge_src, 0, b.edge_src[1] + 1)},
+                  lambda b: "edge_src must be sorted ascending"),
+    "src-range": (False, lambda b: {"edge_src": _set(b.edge_src, -1, b.num_nodes)},
+                  lambda b: f"edge_src holds a node index outside [0, {b.num_nodes})"),
+    "dst-range": (False, lambda b: {"edge_dst": _set(b.edge_dst, 0, -1)},
+                  lambda b: f"edge_dst holds a node index outside [0, {b.num_nodes})"),
+    "dst-range-halo": (True, lambda b: {"edge_dst": _set(b.edge_dst, -1, b.num_nodes + 4)},
+                       lambda b: f"edge_dst holds a node index outside [0, {b.num_nodes + 4})"),
+    "node-k-range": (False, lambda b: {"triplet_node_k": _set(b.triplet_node_k, 5, b.num_nodes)},
+                     lambda b: f"triplet_node_k holds a node index outside [0, {b.num_nodes})"),
+    "e1-order": (False, lambda b: {"triplet_e1": _set(b.triplet_e1, -1, b.triplet_e1[-2] - 1)},
+                 lambda b: "triplet_e1 must be sorted ascending"),
+    "e1-range": (False, lambda b: {"triplet_e1": _set(b.triplet_e1, -1, b.num_edges)},
+                 lambda b: f"triplet_e1 holds an edge index outside [0, {b.num_edges})"),
+    "e2-range": (False, lambda b: {"triplet_e2": _set(b.triplet_e2, 7, -3)},
+                 lambda b: f"triplet_e2 holds an edge index outside [0, {b.num_edges})"),
+    "graph-order": (False, lambda b: {"node_graph": _set(b.node_graph, 0, 1)},
+                    lambda b: "node_graph must be sorted ascending"),
+    "graph-range": (False, lambda b: {"node_graph": _set(b.node_graph, -1, 3)},
+                    lambda b: "node_graph holds a graph index outside [0, 3)"),
+    # int64 values that an int32 cast would wrap into range (2**32 + 1 -> 1)
+    # or into disorder (2**32 -> 0 at the end of the sorted node_graph):
+    # checked in their own dtype, refused by their range
+    "dst-int64-wraps": (False, lambda b: {"edge_dst": _set(b.edge_dst, 4, 2**32 + 1, np.int64)},
+                        lambda b: f"edge_dst holds a node index outside [0, {b.num_nodes})"),
+    "graph-int64-wraps": (False, lambda b: {"node_graph": _set(b.node_graph, -1, 2**32,
+                                                              np.int64)},
+                          lambda b: "node_graph holds a graph index outside [0, 3)"),
+}
+
+
+@pytest.mark.parametrize("case", list(RULE_CASES))
+def test_to_torch_refuses_each_rule(al_fcc, na_bcc, case):
+    """Each rule of the host-batch check (ops.batch_check's plain version on
+    the CPU) refuses a batch that breaks it, and only it, with its message,
+    bound included; the packed batch passes, and each checked host batch
+    counts once under to_torch.checks.cpu."""
+    halo, bad, text = RULE_CASES[case]
+    batch = pack_structures([_port_structure(al_fcc), _port_structure(na_bcc)], 5.0, 4.0,
+                            max_graphs=3)
+    if halo:
+        batch = _halo(batch)
+    before = profiling.counts().get("to_torch.checks.cpu", 0)
+    to_torch(batch, "cpu")  # the packed batch itself passes
+    assert profiling.counts()["to_torch.checks.cpu"] == before + 1
+    with pytest.raises(ValueError, match=f"^{re.escape(text(batch))}$"):
+        to_torch(batch.replace(**bad(batch)), "cpu")
 
 
 def _assert_e2_order(order, offsets, e2, num_edges):

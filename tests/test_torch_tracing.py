@@ -4,7 +4,7 @@
   enters ``record_function``;
 - under ``torch.profiler.profile`` the potential, ``run_md`` and
   ``Trainer.train_step`` record their ``m3gnet.*`` spans, nested and in
-  order: ``to_torch`` split into checks, copies and index; 1 + num_blocks
+  order: ``to_torch`` split into copies, checks and index; 1 + num_blocks
   three-body spans a forward; each MD rebuild with its graphs, padding and
   ``to_torch``; the train step's loss, gradient and Adam phases;
 - ``to_torch`` counts the host bytes it converts and the host batches;
@@ -106,8 +106,8 @@ def test_potential_spans(mode):
     spans = recorded(lambda: pot(host_batch()))
     (whole,) = [s for s in spans if s[0] == "m3gnet.to_torch"]
     parts = [s for s in spans if s[0].startswith("m3gnet.to_torch.")]
-    assert names(parts) == ["m3gnet.to_torch.check", "m3gnet.to_torch.copy",
-                            "m3gnet.to_torch.index"]
+    assert names(parts) == ["m3gnet.to_torch.copy", "m3gnet.to_torch.check",
+                            "m3gnet.to_torch.index"]  # checked on the device, after the copy
     assert all(inside(p, whole) for p in parts)
     assert all(a[2] <= b[1] for a, b in zip(parts, parts[1:]))  # in turn, no overlap
     threebody = [s for s in spans if s[0] == "m3gnet.threebody"]
@@ -126,7 +126,7 @@ def test_run_md_spans():
     for rebuild in rebuilds:
         held = names(s for s in spans if s is not rebuild and inside(s, rebuild))
         assert held[:2] == ["m3gnet.build_batch.graphs", "m3gnet.build_batch.pad"]
-        assert held[2:6] == ["m3gnet.to_torch", "m3gnet.to_torch.check", "m3gnet.to_torch.copy",
+        assert held[2:6] == ["m3gnet.to_torch", "m3gnet.to_torch.copy", "m3gnet.to_torch.check",
                              "m3gnet.to_torch.index"]
         assert "m3gnet.threebody" not in held  # the steps run outside the rebuild
     # each step's force evaluation: one to_torch of a tensor batch, no check

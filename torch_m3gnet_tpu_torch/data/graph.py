@@ -389,13 +389,16 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
     copied, when they are in place. Any object with the fields of
     :class:`GraphBatch` is accepted.
 
-    A host batch is checked once here for what the kernels rely on:
-    ``edge_src`` sorted ascending, every source in [0, N); every
-    destination (``edge_dst``, ``triplet_node_k``) in [0, D);
-    ``triplet_e1`` sorted ascending, every edge index in [0, E);
-    ``node_graph`` sorted ascending, every graph index in [0, B) (the strain
-    stress sums by ``edge_graph = node_graph[edge_src]``, sorted only if
-    ``node_graph`` is). D is N, or ``num_dst_nodes`` where the caller gives
+    A host batch is checked once here for what the kernels rely on, on
+    ``device`` after the copy and before any kernel reads an index
+    (``ops.batch_check``: one kernel launch on CUDA, the plain version on
+    the CPU; each index in the dtype it was given, so no value wraps into
+    range before it is checked): ``edge_src`` sorted ascending, every
+    source in [0, N); every destination (``edge_dst``,
+    ``triplet_node_k``) in [0, D); ``triplet_e1`` sorted ascending, every
+    edge index in [0, E); ``node_graph`` sorted ascending, every graph
+    index in [0, B) (the strain stress sums by ``edge_graph =
+    node_graph[edge_src]``, sorted only if ``node_graph`` is). D is N, or ``num_dst_nodes`` where the caller gives
     it (a shard of the all-gather partition addresses the global nodes);
     for a shard with a halo plan D is N + H, its extended-local ids, and
     ``halo_send_idx`` must lie in [0, N) and ``halo_recv_idx`` in the
@@ -422,8 +425,6 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
         host = not isinstance(batch.edge_src, torch.Tensor)
         if host:
             count("to_torch.host_batches")
-            with span("m3gnet.to_torch.check"):
-                _check_host_batch(batch, num_dst_nodes)
 
         def conv(name, a):
             if a is None or name in STATIC_FIELDS:
@@ -432,18 +433,21 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
                 return None
             if not isinstance(a, torch.Tensor):
                 count("to_torch.host_bytes", np.asarray(a).nbytes)
-            if name in INDEX_FIELDS:
-                return torch.as_tensor(a, device=device).to(torch.int32).contiguous()
             t = torch.as_tensor(a, device=device)
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)
             return t
 
         with span("m3gnet.to_torch.copy"):
-            out = GraphBatch(
-                **{f.name: conv(f.name, getattr(batch, f.name, None))
-                   for f in dataclasses.fields(GraphBatch) if hasattr(batch, f.name)}
-            )
+            fields = {f.name: conv(f.name, getattr(batch, f.name, None))
+                      for f in dataclasses.fields(GraphBatch) if hasattr(batch, f.name)}
+        if host:
+            with span("m3gnet.to_torch.check"):
+                _check_host_batch(fields, num_dst_nodes)
+        # the kernels take int32: exact for a checked index, which lies in [0, bound)
+        out = GraphBatch(**{name: t.to(torch.int32).contiguous()
+                            if name in INDEX_FIELDS and t is not None else t
+                            for name, t in fields.items()})
         from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
         from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
 
@@ -461,40 +465,32 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
         return out.replace(**built) if built else out
 
 
-def _check_host_batch(batch, num_dst_nodes: int | None) -> None:
-    """Raise where a host batch breaks what the kernels rely on (the rules
-    of :func:`to_torch`)."""
-    src, dst = np.asarray(batch.edge_src), np.asarray(batch.edge_dst)
-    n = int(np.asarray(batch.positions).shape[0])
-    send = getattr(batch, "halo_send_idx", None)
+def _check_host_batch(fields, num_dst_nodes: int | None) -> None:
+    """Raise where a host batch, copied to its device as ``fields``, breaks
+    what the kernels rely on (the rules of :func:`to_torch`): shapes here,
+    every index value on the device (``ops.batch_check``)."""
+    from torch_m3gnet_tpu_torch.ops.batch_check import IndexRule, check_indices
+    from torch_m3gnet_tpu_torch.utils.profiling import count
+
+    src = fields["edge_src"]
+    n, nb, num_edges = fields["positions"].shape[0], fields["lattice"].shape[0], src.numel()
+    send = fields.get("halo_send_idx")
     n_dst = num_dst_nodes or n
+    rules = []
     if send is not None:
-        send, recv = np.asarray(send), np.asarray(batch.halo_recv_idx)
-        n_off = len(batch.halo_offsets)
-        n_dst = n + recv.size
-        if (send.size % n_off if n_off else send.size):
-            raise ValueError(f"halo_send_idx holds {send.size} rows, not one block "
-                             f"per ring offset of {batch.halo_offsets}")
-        for name, idx, bound in (("halo_send_idx", send, n),
-                                 ("halo_recv_idx", recv, send.size)):
-            if idx.size and (idx.min() < 0 or idx.max() >= bound):
-                raise ValueError(f"{name} holds a row outside [0, {bound})")
-    if np.any(np.diff(src) < 0):
-        raise ValueError("edge_src must be sorted ascending")
-    node_k = getattr(batch, "triplet_node_k", None)
-    for name, idx, bound in (("edge_src", src, n), ("edge_dst", dst, n_dst),
-                             ("triplet_node_k", node_k, n_dst)):
-        idx = np.asarray(idx if idx is not None else ())
-        if idx.size and (idx.min() < 0 or idx.max() >= bound):
-            raise ValueError(f"{name} holds a node index outside [0, {bound})")
-    e1, e2 = np.asarray(batch.triplet_e1), np.asarray(batch.triplet_e2)
-    if np.any(np.diff(e1) < 0):
-        raise ValueError("triplet_e1 must be sorted ascending")
-    for name, idx in (("triplet_e1", e1), ("triplet_e2", e2)):
-        if idx.size and (idx.min() < 0 or idx.max() >= src.size):
-            raise ValueError(f"{name} holds an edge index outside [0, {src.size})")
-    node_graph, nb = np.asarray(batch.node_graph), int(np.asarray(batch.lattice).shape[0])
-    if np.any(np.diff(node_graph) < 0):
-        raise ValueError("node_graph must be sorted ascending")
-    if node_graph.size and (node_graph.min() < 0 or node_graph.max() >= nb):
-        raise ValueError(f"node_graph holds a graph index outside [0, {nb})")
+        recv, n_off = fields["halo_recv_idx"], len(fields["halo_offsets"])
+        n_dst = n + recv.numel()
+        if (send.numel() % n_off if n_off else send.numel()):
+            raise ValueError(f"halo_send_idx holds {send.numel()} rows, not one block "
+                             f"per ring offset of {fields['halo_offsets']}")
+        rules += [IndexRule("halo_send_idx", send, n, False, "a row"),
+                  IndexRule("halo_recv_idx", recv, send.numel(), False, "a row")]
+    rules += [IndexRule("edge_src", src, n, True, "a node index"),
+              IndexRule("edge_dst", fields["edge_dst"], n_dst, False, "a node index"),
+              IndexRule("triplet_node_k", fields.get("triplet_node_k"), n_dst, False,
+                        "a node index"),
+              IndexRule("triplet_e1", fields["triplet_e1"], num_edges, True, "an edge index"),
+              IndexRule("triplet_e2", fields["triplet_e2"], num_edges, False, "an edge index"),
+              IndexRule("node_graph", fields["node_graph"], nb, True, "a graph index")]
+    count(f"to_torch.checks.{src.device.type}")
+    check_indices(rules)

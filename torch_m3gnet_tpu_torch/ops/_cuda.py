@@ -51,6 +51,9 @@ _ENTRIES = {
     # (data, seg, offsets (given or scratch), out, rows, num_rows_m, num_segments,
     #  offsets given, rows of one member, stream)
     "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 5 + [_P],
+    # (host table of (pointer, length, bound, element bytes, sort mask, range
+    #  mask) int64 rows, rows, word, stream)
+    "m3g_check_batch_index": [_P, _I, _P, _P],
 }
 
 _lock = threading.Lock()
