@@ -283,5 +283,8 @@ def test_seeded_weights_are_reproducible():
     ids=lambda p: p.name,
 )
 def test_configs_load_into_the_port(path):
-    """The port's config has the JAX config's fields, so every YAML loads."""
-    assert M3GNetConfig.from_yaml(str(path)).to_dict() == JaxConfig.from_yaml(str(path)).to_dict()
+    """The port's config has the JAX config's fields, so every YAML loads;
+    its own field (the architecture) keeps its default there."""
+    port, jax_cfg = M3GNetConfig.from_yaml(str(path)).to_dict(), JaxConfig.from_yaml(str(path)).to_dict()
+    assert {k: port[k] for k in jax_cfg} == jax_cfg
+    assert {k: v for k, v in port.items() if k not in jax_cfg} == {"architecture": "m3gnet"}

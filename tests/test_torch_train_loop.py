@@ -165,7 +165,7 @@ def test_split_bucket_and_batches_match_jax():
         assert g.num_graphs_real == w.num_graphs_real
         for f in dataclasses.fields(GraphBatch):
             a = getattr(g, f.name)
-            if f.name in BATCH_INDEX_FIELDS:  # the port's own, built by to_torch
+            if f.name in BATCH_INDEX_FIELDS + ("edge_reverse",):  # the port's own, not asked for
                 assert a is None, f.name
                 continue
             b = getattr(w, f.name)

@@ -11,7 +11,8 @@ always run the sorted-segment kernel (``ops.sorted_segment``) on the card.
 ``compute_dtype`` (``"float32"`` or ``"bfloat16"``) and ``remat_triplets``
 carry the JAX package's semantics (``models/m3gnet.py``'s docstring).
 ``num_devices > 1`` runs ``train.run.train_model`` data-parallel on that
-many ranks of the process group.
+many ranks of the process group. ``architecture`` is the port's own
+(CHGNet, ``models.chgnet``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,11 @@ class M3GNetConfig:
     # Activations are always feature-major; "fm" only requires the
     # factorized mode, as in the JAX package.
     layout: str = "auto"
+    # The port's own field (the JAX package runs M3GNet only): the model that
+    # build_model assembles, "m3gnet" or "chgnet". For CHGNet,
+    # threebody_cutoff is the bond graph's cutoff and num_blocks the number
+    # of atom convs.
+    architecture: str = "m3gnet"
 
     def replace(self, **kwargs: Any) -> "M3GNetConfig":
         return dataclasses.replace(self, **kwargs)

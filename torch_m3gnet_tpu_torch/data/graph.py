@@ -28,11 +28,14 @@ from torch_m3gnet_tpu_torch.data.triplets import compute_threebody
 # Index fields: int32 on the host, contiguous int32 tensors on the device.
 INDEX_FIELDS = (
     "atom_types", "node_graph", "edge_src", "edge_dst", "triplet_e1",
-    "triplet_e2", "n_node", "triplet_node_k", "halo_send_idx", "halo_recv_idx",
+    "triplet_e2", "n_node", "triplet_node_k", "halo_send_idx", "halo_recv_idx", "edge_reverse",
     "edge_src_offsets", "triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets",
 )
 # The per-batch index of the kernels, built by to_torch (None on the host).
 BATCH_INDEX_FIELDS = INDEX_FIELDS[-4:]
+# Index fields built at pack time that a model may name in its batch_index:
+# to_torch copies them and refuses a batch without them.
+PACKED_INDEX_FIELDS = ("edge_reverse",)
 # The fields that the index is built from: replacing one (or the node
 # count) drops the index that a batch carries.
 _INDEX_SOURCES = ("edge_src", "triplet_e1", "triplet_e2")
@@ -77,6 +80,12 @@ class GraphBatch:
 
     # node k = edge_dst[triplet_e2], precomputed at pack time
     triplet_node_k: Optional[Any] = None  # (T,) i32
+
+    # The bond pairs (``bond_pairs=True`` at pack time; None otherwise): for
+    # every edge i->j at image shift S the id of its reverse j->i at -S, so
+    # that the two directed edges of one undirected bond find each other
+    # (CHGNet keeps one feature per bond). A padded edge is its own reverse.
+    edge_reverse: Optional[Any] = None  # (E,) i32
 
     # The per-batch index of the kernels, built by to_torch once per batch
     # (None on the host), each part only where the model's mode reads it:
@@ -156,12 +165,14 @@ def graph_from_structure(
     threebody_cutoff: float,
     dtype=np.float32,
     use_native: bool | None = None,
+    bond_pairs: bool = False,
 ) -> GraphBatch:
     """Build a single (unpadded) graph from a crystal structure: full PBC
     neighbor list at ``cutoff``, triplets among edges within
     ``threebody_cutoff``, 0-indexed atomic numbers. ``use_native`` picks
     the path of both host searches (``neighbor_list_pbc``,
-    ``compute_threebody``); the paths give the same graph."""
+    ``compute_threebody``); the paths give the same graph. ``bond_pairs``
+    adds ``edge_reverse`` (:func:`reverse_edges`)."""
     if threebody_cutoff > cutoff:
         raise ValueError("threebody_cutoff must be <= cutoff")
     edge_index, shift, dist = neighbor_list_pbc(
@@ -195,6 +206,7 @@ def graph_from_structure(
         triplet_e2=tei[1].astype(np.int32),
         triplet_mask=np.ones(tei.shape[1], dtype=bool),
         triplet_node_k=edge_index[1][tei[1]].astype(np.int32),
+        edge_reverse=reverse_edges(edge_index[0], edge_index[1], shift) if bond_pairs else None,
         lattice=structure.lattice.astype(dtype)[None],
         graph_mask=np.ones(1, dtype=bool),
         n_node=np.array([n], dtype=np.int32),
@@ -205,6 +217,34 @@ def graph_from_structure(
         else np.asarray(stress, dtype=dtype).reshape(1, 6),
         num_graphs_real=1,
     )
+
+
+def reverse_edges(edge_src, edge_dst, shift) -> np.ndarray:
+    """(E,) int32: for every edge i->j at image shift S the id of the edge
+    j->i at -S. A full periodic neighbour list holds both; an edge without
+    its reverse raises."""
+    src, dst = np.asarray(edge_src, np.int64), np.asarray(edge_dst, np.int64)
+    s = np.rint(np.asarray(shift, np.float64)).astype(np.int64).reshape(-1, 3)
+    if src.size == 0:
+        return np.zeros(0, np.int32)
+    span = int(np.abs(s).max())
+    width, n = 2 * span + 1, int(max(src.max(), dst.max())) + 1
+
+    def code(a, b, sh):  # one int64 per (source, destination, shift)
+        c = a * n + b
+        for k in range(3):
+            c = c * width + sh[:, k] + span
+        return c
+
+    keys = code(src, dst, s)
+    order = np.argsort(keys, kind="stable")
+    want = code(dst, src, -s)
+    at = np.minimum(np.searchsorted(keys[order], want), keys.size - 1)
+    if not np.array_equal(keys[order][at], want):
+        bad = int(np.nonzero(keys[order][at] != want)[0][0])
+        raise ValueError(f"edge {bad} ({src[bad]} -> {dst[bad]} at shift {s[bad].tolist()}) "
+                         f"has no reverse edge in the neighbour list")
+    return order[at].astype(np.int32)
 
 
 def _all_or_none(graphs: Sequence[GraphBatch], attr: str) -> bool:
@@ -226,9 +266,10 @@ def batch_graphs(graphs: Sequence[GraphBatch]) -> GraphBatch:
         "positions", "atom_types", "node_graph", "node_mask",
         "edge_src", "edge_dst", "edge_cell_shift", "edge_mask",
         "triplet_e1", "triplet_e2", "triplet_mask", "triplet_node_k",
-        "lattice", "graph_mask", "n_node", "energy", "forces", "stress",
+        "lattice", "graph_mask", "n_node", "energy", "forces", "stress", "edge_reverse",
     )}
     has = {k: _all_or_none(graphs, k) for k in ("energy", "forces", "stress")}
+    pairs = _all_or_none(graphs, "edge_reverse")
 
     for g in graphs:
         cols["positions"].append(g.positions)
@@ -252,6 +293,8 @@ def batch_graphs(graphs: Sequence[GraphBatch]) -> GraphBatch:
         for k, present in has.items():
             if present:
                 cols[k].append(getattr(g, k))
+        if pairs:
+            cols["edge_reverse"].append(g.edge_reverse + edge_off)
         node_off += g.num_nodes
         edge_off += g.num_edges
         graph_off += g.num_graphs
@@ -344,6 +387,8 @@ def pad_batch(
         triplet_node_k=None
         if batch.triplet_node_k is None
         else pad0(batch.triplet_node_k, pt),
+        edge_reverse=None if batch.edge_reverse is None else np.concatenate(
+            [batch.edge_reverse, np.arange(e, max_edges, dtype=batch.edge_reverse.dtype)]),
         lattice=lattice,
         graph_mask=pad0(batch.graph_mask, pb),
         n_node=pad0(batch.n_node, pb),
@@ -365,9 +410,12 @@ def pack_structures(
     pad_multiple: int = 128,
     dtype=np.float32,
     use_native: bool | None = None,
+    bond_pairs: bool = False,
 ) -> GraphBatch:
-    """Structures -> graphs -> concatenated -> padded batch in one call."""
-    graphs = [graph_from_structure(s, cutoff, threebody_cutoff, dtype=dtype, use_native=use_native)
+    """Structures -> graphs -> concatenated -> padded batch in one call
+    (``bond_pairs``: see :func:`graph_from_structure`)."""
+    graphs = [graph_from_structure(s, cutoff, threebody_cutoff, dtype=dtype, use_native=use_native,
+                                   bond_pairs=bond_pairs)
               for s in structures]
     cat = batch_graphs(graphs)
     return pad_batch(
@@ -398,7 +446,8 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
     ``triplet_node_k``) in [0, D); ``triplet_e1`` sorted ascending, every
     edge index in [0, E); ``node_graph`` sorted ascending, every graph
     index in [0, B) (the strain stress sums by ``edge_graph =
-    node_graph[edge_src]``, sorted only if ``node_graph`` is). D is N, or ``num_dst_nodes`` where the caller gives
+    node_graph[edge_src]``, sorted only if ``node_graph`` is); ``edge_reverse``, where the
+    batch has it, in [0, E). D is N, or ``num_dst_nodes`` where the caller gives
     it (a shard of the all-gather partition addresses the global nodes);
     for a shard with a halo plan D is N + H, its extended-local ids, and
     ``halo_send_idx`` must lie in [0, N) and ``halo_recv_idx`` in the
@@ -413,14 +462,20 @@ def to_torch(batch, device, dtype=None, index=BATCH_INDEX_FIELDS,
     host batch gets the named parts and no other; a tensor batch keeps the
     index it carries and gets the named parts it lacks
     (``GraphBatch.replace`` drops an index whose sources it replaces).
+    ``index`` may also name ``edge_reverse`` (``CHGNet.batch_index``),
+    which pack time builds (``bond_pairs=True``): a batch without it is
+    refused.
     """
     import torch
 
     from torch_m3gnet_tpu_torch.utils.profiling import count, span
 
-    unknown = set(index) - set(BATCH_INDEX_FIELDS)
+    unknown = set(index) - set(BATCH_INDEX_FIELDS) - set(PACKED_INDEX_FIELDS)
     if unknown:
         raise ValueError(f"unknown batch index fields {sorted(unknown)}")
+    if "edge_reverse" in index and getattr(batch, "edge_reverse", None) is None:
+        raise ValueError("the model reads the batch's edge_reverse: pack it with "
+                         "bond_pairs=True")
     with span("m3gnet.to_torch"):
         host = not isinstance(batch.edge_src, torch.Tensor)
         if host:
@@ -492,5 +547,8 @@ def _check_host_batch(fields, num_dst_nodes: int | None) -> None:
               IndexRule("triplet_e1", fields["triplet_e1"], num_edges, True, "an edge index"),
               IndexRule("triplet_e2", fields["triplet_e2"], num_edges, False, "an edge index"),
               IndexRule("node_graph", fields["node_graph"], nb, True, "a graph index")]
+    if fields.get("edge_reverse") is not None:
+        rules.append(IndexRule("edge_reverse", fields["edge_reverse"], num_edges, False,
+                               "an edge index"))
     count(f"to_torch.checks.{src.device.type}")
     check_indices(rules)

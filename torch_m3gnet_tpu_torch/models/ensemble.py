@@ -30,7 +30,8 @@ from torch.func import functional_call, vmap
 from torch_m3gnet_tpu_torch.data.graph import to_torch
 from torch_m3gnet_tpu_torch.models.m3gnet import PotentialOutput
 
-_FIELDS = tuple(f.name for f in dataclasses.fields(PotentialOutput))
+# Every field of the output but the magnetic moments, which M3GNet lacks.
+_FIELDS = tuple(f.name for f in dataclasses.fields(PotentialOutput) if f.name != "magmom")
 
 
 def stack_params(state_dicts: Sequence[Mapping[str, torch.Tensor]]) -> dict[str, torch.Tensor]:

@@ -7,6 +7,10 @@ Flax parameter tree maps onto these modules by name alone; a layer computes
 ``kernel.T @ x (+ bias[:, None])``, the same contraction as the JAX
 ``einsum("io,im->om")``.
 
+:class:`NormGatedMLPFM` is CHGNet's (no JAX counterpart): the gated MLP
+whose twin stacks each end in a LayerNorm over the features,
+SiLU(LN(core(x))) * sigmoid(LN(gate(x))).
+
 The JAX package can fuse the twin dense/gate stacks into wider matmuls
 (``fuse_first``/``fuse_second``); that changes floating-point association
 only. The port runs the plain twin stacks.
@@ -98,3 +102,59 @@ class GatedMLPFM(nn.Module):
             g = getattr(self, f"gate_{i}")(g)
             g = torch.sigmoid(g) if i == last else F.silu(g)
         return d * g
+
+
+class _Transpose(torch.autograd.Function):
+    """(A, B) -> its (B, A) transpose, materialised; the gradient is the
+    gradient's transpose, materialised too (a plain ``.t().contiguous()``
+    would hand back a strided gradient, on which every elementwise kernel
+    of the backward pass runs unvectorised)."""
+
+    @staticmethod
+    def forward(x):
+        return x.t().contiguous()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Transpose.apply(g)
+
+
+def transpose(x: torch.Tensor) -> torch.Tensor:
+    """The contiguous transpose of a 2-D tensor, and of its gradient."""
+    return _Transpose.apply(x)
+
+
+class NormGatedMLPFM(nn.Module):
+    """CHGNet's gated MLP, (in_features, M) -> (features, M):
+    SiLU(LN(core(x))) * sigmoid(LN(gate(x))), where ``core`` and ``gate``
+    are each Dense -> SiLU per hidden width of ``hidden``, then Dense to
+    ``features`` (one Dense where ``hidden`` is empty).
+
+    The first Dense of each stack runs feature-major; its output is
+    transposed (:func:`transpose`) and the rest runs row-major, so that each
+    LayerNorm normalises contiguous rows; the product is transposed back.
+    Every tensor, and every gradient, is contiguous."""
+
+    def __init__(self, in_features: int, features: int, hidden: Sequence[int] = (),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [in_features, *hidden, features]
+        self.depth = len(dims) - 1
+        for part in ("core", "gate"):
+            for i in range(self.depth):
+                self.add_module(f"{part}_{i}", DenseFM(dims[i], dims[i + 1], generator=generator))
+            self.add_module(f"{part}_norm", nn.LayerNorm(features))
+
+    def forward(self, x_fm: torch.Tensor) -> torch.Tensor:
+        out = {}
+        for part in ("core", "gate"):
+            h = transpose(getattr(self, f"{part}_0")(x_fm))  # (M, width)
+            for i in range(1, self.depth):
+                layer = getattr(self, f"{part}_{i}")
+                h = torch.addmm(layer.bias.to(h.dtype), F.silu(h), layer.kernel.to(h.dtype))
+            out[part] = getattr(self, f"{part}_norm")(h)
+        return transpose(F.silu(out["core"]) * torch.sigmoid(out["gate"]))

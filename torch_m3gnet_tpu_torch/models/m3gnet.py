@@ -23,11 +23,13 @@ spans (``utils.profiling``): 1 + ``num_blocks`` a forward.
 - :func:`edge_vectors_fm` builds the (3, E) pair vectors from positions,
   cell shifts and lattices;
 - :class:`M3GNet` maps a batch and those vectors to per-graph energies;
-- :class:`M3GNetPotential` takes ONE backward pass with respect to the edge
-  vectors, from which forces and stress are assembled (``create_graph=True``
-  keeps its graph, so a loss on forces and stress differentiates to the
-  weights);
-- :func:`build_model` assembles a potential from a config on a device.
+- :class:`Potential` takes ONE backward pass of any energy model over the
+  edge vectors (:class:`M3GNet`, or ``models.chgnet.CHGNet``) with respect
+  to those vectors, from which forces and stress are assembled
+  (``create_graph=True`` keeps its graph, so a loss on forces and stress
+  differentiates to the weights); ``M3GNetPotential`` is its older name;
+- :func:`build_model` assembles a potential from a config on a device, for
+  the architecture the config names.
 
 Two settings of the JAX model carry over with its semantics:
 
@@ -63,7 +65,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,13 +103,17 @@ PALLAS_SEGMENT = ("auto", "on", "off")
 
 @dataclass(frozen=True)
 class PotentialOutput:
-    """Energies/forces/stresses for a batch (padded entries zeroed)."""
+    """Energies/forces/stresses for a batch (padded entries zeroed), and the
+    magnetic moments of a model that predicts them."""
 
     energy: torch.Tensor  # (B,) total energy, eV
     forces: torch.Tensor  # (N, 3) eV/Angstrom
     stress: torch.Tensor  # (B, 6) Voigt [xx, yy, zz, yz, zx, xy], eV/A^3
     energy_per_atom: torch.Tensor  # (B,) eV/atom
     atomic_energy: torch.Tensor  # (N,) eV
+    # (N,) Bohr magnetons: CHGNet's per-atom moments; None for M3GNet, which
+    # predicts none
+    magmom: Optional[torch.Tensor] = None
 
 
 def take_dst_fm(x_fm: torch.Tensor, graph: GraphBatch, idx: torch.Tensor,
@@ -396,9 +402,12 @@ def _voigt(t: torch.Tensor) -> torch.Tensor:
     )
 
 
-class M3GNetPotential(nn.Module):
-    """Energy/forces/stress from ONE backward pass with respect to the
-    (3, E) edge vectors.
+class Potential(nn.Module):
+    """Energy/forces/stress of an energy model over the (3, E) edge vectors
+    (:class:`M3GNet` or ``models.chgnet.CHGNet``: ``model(graph, r_fm,
+    group, remat=...)`` gives the per-graph and per-atom energies, and
+    CHGNet a third output, the magnetic moments), from ONE backward pass
+    with respect to those vectors.
 
     With g_e = dE/dr_e: forces F_i = sum_{e: src=i} g_e - sum_{e: dst=i} g_e;
     stress ``"strain"`` (default) is the PBC virial in pair-force form,
@@ -425,7 +434,7 @@ class M3GNetPotential(nn.Module):
     f64 to rounding.
     """
 
-    def __init__(self, model: M3GNet, stress_mode: str = "strain"):
+    def __init__(self, model: nn.Module, stress_mode: str = "strain"):
         super().__init__()
         if stress_mode not in ("strain", "virial"):
             raise ValueError(f"unknown stress_mode: {stress_mode}")
@@ -440,7 +449,7 @@ class M3GNetPotential(nn.Module):
         nodes', the energy and the stress the whole graph's."""
         if functional and group is not None:
             raise ValueError("functional=True takes no process group")
-        param = self.model.edge_init.kernel
+        param = next(self.model.parameters())
         graph = to_torch(batch, param.device, param.dtype, self.model.batch_index,
                          num_dst_nodes=None if group is None else extended_nodes(batch, group))
         positions, lattice = graph.positions, graph.lattice
@@ -448,25 +457,26 @@ class M3GNetPotential(nn.Module):
             r_fm = edge_vectors_fm(graph, positions, lattice)  # (3, E)
 
             def total_energy(r):
-                energy, atomic = self.model(graph, r, remat=False)
-                return energy.sum(), (energy, atomic)
+                out = self.model(graph, r, remat=False)
+                return out[0].sum(), out
 
-            total, vjp_fn, (energy, atomic) = torch.func.vjp(total_energy, r_fm, has_aux=True)
+            total, vjp_fn, out = torch.func.vjp(total_energy, r_fm, has_aux=True)
             (g_fm,) = vjp_fn(torch.ones_like(total), retain_graph=create_graph,
                              create_graph=create_graph)
-            return self.assemble(graph, r_fm, g_fm, energy, atomic)
+            return self.assemble(graph, r_fm, g_fm, *out)
         with torch.enable_grad():
             r_fm = edge_vectors_fm(graph, positions, lattice, group)  # (3, E)
             if not r_fm.requires_grad:
                 r_fm.requires_grad_(True)
-            energy, atomic = self.model(graph, r_fm, group)
-            (g_fm,) = torch.autograd.grad(energy.sum(), r_fm, create_graph=create_graph)  # (3, E)
-        return self.assemble(graph, r_fm, g_fm, energy, atomic, group)
+            out = self.model(graph, r_fm, group)
+            (g_fm,) = torch.autograd.grad(out[0].sum(), r_fm, create_graph=create_graph)  # (3, E)
+        return self.assemble(graph, r_fm, g_fm, *out, group=group)
 
-    def assemble(self, graph: GraphBatch, r_fm, g_fm, energy, atomic,
+    def assemble(self, graph: GraphBatch, r_fm, g_fm, energy, atomic, magmom=None,
                  group=None) -> PotentialOutput:
         """Forces and stress from the edge vectors ``r_fm`` and the energy's
-        gradient ``g_fm`` with respect to them, (3, E) each."""
+        gradient ``g_fm`` with respect to them, (3, E) each; ``magmom``
+        passes through."""
         positions, lattice = graph.positions, graph.lattice
         nb = graph.num_graphs
         src, dst = graph.edge_src, graph.edge_dst
@@ -504,7 +514,14 @@ class M3GNetPotential(nn.Module):
             stress=stress,
             energy_per_atom=energy / n_node,
             atomic_energy=atomic,
+            magmom=magmom,
         )
+
+
+# The potential's older name, from when M3GNet was its only model.
+M3GNetPotential = Potential
+
+ARCHITECTURES = ("m3gnet", "chgnet")
 
 
 def resolve_device(device) -> torch.device:
@@ -521,8 +538,10 @@ def resolve_device(device) -> torch.device:
 
 def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
                 length_scale: float = 1.0, stress_mode: str = "strain",
-                device=None, generator: torch.Generator | None = None) -> M3GNetPotential:
-    """Assemble a potential from a config on ``device`` (default: the card).
+                device=None, generator: torch.Generator | None = None) -> Potential:
+    """Assemble a potential from a config on ``device`` (default: the card),
+    for ``config.architecture``: ``"m3gnet"`` (below) or ``"chgnet"``
+    (:func:`build_chgnet`).
 
     Weights are drawn on the CPU from ``generator`` (Flax's initialisers:
     lecun-normal kernels, zero biases) and then moved, so one seed gives the
@@ -545,6 +564,13 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
     package's ``"on"``), since it is deterministic, where ``index_add`` is
     not.
     """
+    architecture = getattr(config, "architecture", "m3gnet")
+    if architecture not in ARCHITECTURES:
+        raise ValueError(f"unknown architecture: {architecture!r}")
+    if architecture == "chgnet":
+        if energy_scale != 1.0 or length_scale != 1.0:
+            raise ValueError("CHGNet has no energy or length scale")
+        return build_chgnet(config, elemental_energies, stress_mode, device, generator)
     mode = config.threebody_mode
     if mode == "auto":
         if config.fused_triplets != "auto":
@@ -563,10 +589,7 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         if not (isinstance(compute_dtype, torch.dtype) and compute_dtype.is_floating_point):
             raise ValueError(f"unknown compute_dtype: {config.compute_dtype!r}")
     device = resolve_device(device)
-    if device.type == "cuda":
-        # Full-f32 matmuls, as the reference semantics need: no TF32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    _no_tf32(device)
     model = M3GNet(
         cutoff=config.cutoff,
         threebody_cutoff=config.threebody_cutoff,
@@ -584,3 +607,40 @@ def build_model(config, elemental_energies=None, energy_scale: float = 1.0,
         generator=generator,
     )
     return M3GNetPotential(model, stress_mode=stress_mode).to(device)
+
+
+def _no_tf32(device: torch.device) -> None:
+    if device.type == "cuda":
+        # Full-f32 matmuls, as the reference semantics need: no TF32.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def build_chgnet(config, elemental_energies=None, stress_mode: str = "strain", device=None,
+                 generator: torch.Generator | None = None) -> Potential:
+    """CHGNet (``models.chgnet``) from a config: ``cutoff`` is the atom
+    graph's, ``threebody_cutoff`` the bond graph's, ``embedding_dim`` the
+    width of atom, bond and angle features, ``num_blocks`` the number of
+    atom convs, ``num_types`` the species (the bases' sizes are the
+    published 31 and 31). It computes in float32 (or float64 after
+    ``.double()``), without remat, and packs its batches with
+    ``bond_pairs=True``. Weights are drawn on the CPU from ``generator``
+    (lecun-normal kernels, zero biases, unit LayerNorms) and then moved."""
+    from torch_m3gnet_tpu_torch.models.chgnet import CHGNet
+
+    if config.compute_dtype not in ("float32", None):
+        raise ValueError(f"CHGNet computes in float32: compute_dtype {config.compute_dtype!r}")
+    if config.remat_triplets:
+        raise ValueError("CHGNet has no remat_triplets")
+    device = resolve_device(device)
+    _no_tf32(device)
+    model = CHGNet(
+        cutoff=config.cutoff,
+        bond_graph_cutoff=config.threebody_cutoff,
+        num_types=config.num_types,
+        width=config.embedding_dim,
+        num_atom_convs=config.num_blocks,
+        elemental_energies=tuple(elemental_energies or ()),
+        generator=generator,
+    )
+    return Potential(model, stress_mode=stress_mode).to(device)

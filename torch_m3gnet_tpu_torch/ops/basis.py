@@ -11,7 +11,10 @@ the new axis of l, n or m comes first):
   modes' angular basis);
 - real Racah-normalized harmonics, whose products give P_l(cos theta) by the
   addition theorem;
-- spherical Bessel zeros by interlaced root bracketing (scipy, own copy).
+- spherical Bessel zeros by interlaced root bracketing (scipy, own copy);
+- CHGNet's bases: the radial Bessel basis sqrt(2/rc) sin(f_n r / rc) / r
+  with learnable frequencies f_n under a smooth polynomial envelope, and
+  the Fourier basis of the bond angle.
 
 Every branch uses the double-``where`` guard: ``torch.where`` propagates NaN
 gradients from the branch it does not select, exactly as ``jnp.where`` does,
@@ -229,3 +232,33 @@ def smooth_radial_basis_fm(r: torch.Tensor, n_max: int, cutoff: float) -> torch.
             h = (f + math.sqrt(em[i] / dm[i - 1]) * hs[i - 1]) / math.sqrt(dm[i])
         hs.append(h)
     return torch.stack(hs, dim=0)
+
+
+def polynomial_envelope(u: torch.Tensor, p: int) -> torch.Tensor:
+    """Smooth envelope of u = r / rc: 1 - (p+1)(p+2)/2 u^p + p(p+2) u^(p+1)
+    - p(p+1)/2 u^(p+2) for u < 1 (value, slope and curvature 0 at u = 1),
+    0 beyond."""
+    val = (1.0 - (p + 1) * (p + 2) / 2.0 * u**p + p * (p + 2) * u ** (p + 1)
+           - p * (p + 1) / 2.0 * u ** (p + 2))
+    return torch.where(u < 1.0, val, torch.zeros_like(val))
+
+
+def bessel_rbf_fm(r: torch.Tensor, frequencies: torch.Tensor, cutoff: float,
+                  envelope_p: int) -> torch.Tensor:
+    """(n, *r.shape): sqrt(2 / rc) sin(f_n r / rc) / r times the polynomial
+    envelope of r / rc; ``frequencies`` (n,) may be learnable (CHGNet starts
+    them at n pi). ``r`` > 0 (padded edges carry the cutoff)."""
+    shape = (-1,) + (1,) * r.dim()
+    f = frequencies.to(r.dtype).reshape(shape)
+    env = polynomial_envelope(r / cutoff, envelope_p)
+    return math.sqrt(2.0 / cutoff) * torch.sin(f * r[None] / cutoff) / r[None] * env[None]
+
+
+def fourier_basis_fm(theta: torch.Tensor, order: int) -> torch.Tensor:
+    """(1 + 2 order, *theta.shape): [1 / sqrt(2), sin(k theta), cos(k theta)
+    for k = 1..order] / sqrt(pi), the orthonormal Fourier basis on [0, 2 pi)."""
+    k = torch.arange(1, order + 1, dtype=theta.dtype, device=theta.device)
+    k = k.reshape((-1,) + (1,) * theta.dim())
+    kt = k * theta[None]
+    const = torch.full_like(theta, 1.0 / math.sqrt(2.0))[None]
+    return torch.cat([const, torch.sin(kt), torch.cos(kt)], 0) / math.sqrt(math.pi)

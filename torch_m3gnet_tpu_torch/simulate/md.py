@@ -234,7 +234,7 @@ def run_md(
         ]
     velocities = [np.asarray(v, dtype=np.float64) for v in velocities]
 
-    param = potential.model.edge_init.kernel
+    param = next(potential.parameters())
     gen = torch.Generator(device=param.device)
     gen.manual_seed(config.seed)
     positions = [s.cart_coords.copy() for s in structures]
@@ -249,7 +249,8 @@ def run_md(
             with span("m3gnet.md.rebuild"):
                 graphs, host = build_batch(structures, positions, lattices,
                                            cutoff + config.skin, threebody_cutoff, pad_multiple,
-                                           dtype=dtype)
+                                           dtype=dtype,
+                                           bond_pairs="edge_reverse" in potential.model.batch_index)
                 batch = device_batch(potential, host)
                 vel_pad = np.zeros((batch.num_nodes, 3))
                 vel_cat = np.concatenate(velocities, axis=0)

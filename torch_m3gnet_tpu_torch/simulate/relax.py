@@ -77,15 +77,17 @@ class LbfgsConfig:
 
 
 def build_batch(structures: Sequence[Structure], positions, lattices, cutoff: float,
-                threebody_cutoff: float, pad_multiple: int, dtype=np.float64):
+                threebody_cutoff: float, pad_multiple: int, dtype=np.float64,
+                bond_pairs: bool = False):
     """The host graphs of ``structures`` at ``positions`` and ``lattices``
     (neighbour list at ``cutoff``, which the callers widen by their skin)
     and their padded batch: one rebuild's host work, in the spans
-    ``m3gnet.build_batch.graphs`` and ``m3gnet.build_batch.pad``."""
+    ``m3gnet.build_batch.graphs`` and ``m3gnet.build_batch.pad``
+    (``bond_pairs``: the edges' reverses, for a model that reads them)."""
     with span("m3gnet.build_batch.graphs"):
         graphs = [
             graph_from_structure(Structure(lat, p, s.atomic_numbers), cutoff, threebody_cutoff,
-                                 dtype=dtype)
+                                 dtype=dtype, bond_pairs=bond_pairs)
             for s, p, lat in zip(structures, positions, lattices)
         ]
     with span("m3gnet.build_batch.pad"):
@@ -102,7 +104,7 @@ def build_batch(structures: Sequence[Structure], positions, lattices, cutoff: fl
 def device_batch(potential, batch: GraphBatch) -> GraphBatch:
     """``batch`` on the potential's device and dtype, with the kernel index
     its three-body mode reads."""
-    param = potential.model.edge_init.kernel
+    param = next(potential.parameters())
     return to_torch(batch, param.device, param.dtype, potential.model.batch_index)
 
 
@@ -330,7 +332,8 @@ def relax_structures(
     with torch.no_grad():
         for _ in range(n_outer):
             graphs, host = build_batch(structures, positions, lattices, cutoff + skin,
-                                       threebody_cutoff, pad_multiple)
+                                       threebody_cutoff, pad_multiple,
+                                       bond_pairs="edge_reverse" in potential.model.batch_index)
             batch = device_batch(potential, host)
             pos, lat, forces, energy, stress = (
                 t.cpu().double().numpy() for t in inner(potential, batch, config,

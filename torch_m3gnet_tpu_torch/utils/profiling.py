@@ -8,8 +8,11 @@
   synchronises the device.
 - :func:`count` adds to one registry of named integers, always on: the
   kernel launches of the hand kernels (``launch.<op>``, bumped by
-  ``ops._cuda.launch``) and the host bytes that ``data.to_torch`` converts
-  (``to_torch.host_bytes``, ``to_torch.host_batches``).
+  ``ops._cuda.launch``), the host bytes that ``data.to_torch`` converts
+  (``to_torch.host_bytes``, ``to_torch.host_batches``) and CHGNet's real
+  angles and bonds a forward (``chgnet.angles``, ``chgnet.bonds``). A
+  count that the device holds is added there, without a synchronisation,
+  and read by :func:`counts`.
 - :func:`device_trace` writes a Chrome trace that TensorBoard's profiler
   plugin or Perfetto opens; it carries the spans.
 """
@@ -33,16 +36,18 @@ def span(name: str):
     return record_function(name) if _profiler_enabled() else _NULL
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name``: an int, or an integer tensor of
+    one element, which is summed on its device."""
     with _LOCK:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
 def counts() -> dict[str, int]:
-    """A copy of every counter."""
+    """A copy of every counter, as ints (a count held on the device is read
+    back here)."""
     with _LOCK:
-        return dict(_COUNTS)
+        return {k: int(v) for k, v in _COUNTS.items()}
 
 
 def reset_counts(prefix: str = "") -> None:
