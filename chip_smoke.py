@@ -44,6 +44,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    version's word on the clean arrays and on every fault case of
    ``batch_check_faults``, and its time at the screen sizes against its
    bound (the ``{"batch_check": ...}`` line; at least ``CHECK_MIN_SHARE``);
+   then CHGNet's norm-and-gate (``ops.norm_gate``, "BN"): both kernels
+   against the plain version in float64 at ``NORM_GATE_CASES`` and at a
+   screen request's shapes (output, d core, d gate, the parameters'
+   gradients, two calls bitwise equal), the
+   second order through its Functions, and both kernels' times at a
+   chgnet-mptrj.screen request's shapes beside their bounds, the plain
+   version and the transpose + ``layer_norm`` yardstick (the
+   ``{"norm_gate": ...}`` line);
 4. model: the default 227,549-parameter M3GNet (seeded weights) evaluates
    energy, forces and stress on the bench batch (32 perturbed 108-atom fcc
    Cu cells, ``pad_multiple=512``) in the factorized mode through B1-B3 and
@@ -1323,6 +1331,170 @@ def time_batch_check(name: str, flush) -> dict:
         raise AssertionError(f"batch check: {kernel_us:.2f} us, {row['share']:.0%} of its "
                              f"bound {bound_us:.2f} us, under {CHECK_MIN_SHARE:.0%}")
     return row
+
+
+# CHGNet's norm-and-gate (ops.norm_gate, csrc/norm_gate.cu; "BN" in
+# PERF.md): the checks' (F, M), M no multiple of the kernels' 64-column tile
+# (1,001 and 130 not of 4 either: the 4-byte path), F up to the kernels' 256
+# (past 64 the kernels hold 16 rows a thread, not 4), and the M of one
+# chgnet-mptrj.screen batch's padded edges and angles (F 64), which the card
+# checks too and times: there the backward's blocks each walk ~40-150 tiles
+# and its second pass sums hundreds of rows, where the small cases take one
+# tile a block.
+NORM_GATE_CASES = ((64, 1_000), (8, 1_000), (64, 1_001), (8, 130), (100, 1_000), (256, 130))
+NORM_GATE_SCREEN = {"edges": 751_104, "angles": 2_569_216}
+NORM_GATE_EPS = 1e-5
+# Kernel (f32) vs the plain version in float64, as a fraction of the
+# reference's largest magnitude: the output and d core, d gate are sums of
+# F terms a column; the parameters' gradients sums of M terms in another
+# order. Second order (the Functions' double backward) goes through the
+# plain backward in f32 and one more sum over M.
+NORM_GATE_TOL = 1e-5
+NORM_GATE_TOL2 = 1e-4
+
+
+def norm_gate_inputs(f: int, m: int, device, seed: int = 0, dtype=None) -> list:
+    """(g, core, gate, core bias, gate bias, core scale, core shift, gate
+    scale, gate shift), float32 unless ``dtype``: columns neither centred
+    nor of unit spread, scales near 1."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, dtype=torch.float64)  # noqa: E731
+    g, core, gate = rand(f, m), 2.0 * rand(f, m) + 0.3, 1.5 * rand(f, m) - 0.2
+    params = [0.1 * rand(f) + (1.0 if q in (2, 4) else 0.0) for q in range(6)]
+    return [t.to(device=device, dtype=dtype or torch.float32) for t in (g, core, gate, *params)]
+
+
+def check_norm_gate(device: str = "cuda") -> dict:
+    """Both kernels (on the CPU: the plain version in float32) against the
+    plain version in float64 at NORM_GATE_CASES and, on the card, at
+    NORM_GATE_SCREEN's shapes (F 64): the output, d core, d gate and the six
+    parameters' gradients within NORM_GATE_TOL, and the gradients bitwise
+    equal in a second call. Returns the worst relative error of each."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import norm_gate as ng
+
+    cuda = torch.device(device).type == "cuda"
+    labels = ("out", "d_core", "d_gate", *(f"d_{p}" for p in ng.PARAMS))
+    worst = dict.fromkeys(labels, 0.0)
+    cases = [*NORM_GATE_CASES, *((64, m) for m in NORM_GATE_SCREEN.values() if cuda)]
+    for f, m in cases:
+        g, core, gate, *params = norm_gate_inputs(f, m, device, seed=f * m)
+        ref = [t.double() for t in (g, core, gate, *params)]
+        want = (ng.norm_gate_fm_plain(*ref[1:], NORM_GATE_EPS),
+                *ng.norm_gate_backward_plain(*ref, NORM_GATE_EPS))
+        if cuda:
+            fwd = lambda: ng.norm_gate_fwd_cuda(core, gate, params, NORM_GATE_EPS)  # noqa: E731
+            bwd = lambda: ng.norm_gate_bwd_cuda(g, core, gate, params, NORM_GATE_EPS)  # noqa: E731
+        else:
+            fwd = lambda: ng.norm_gate_fm_plain(core, gate, *params, NORM_GATE_EPS)  # noqa: E731
+            bwd = lambda: ng.norm_gate_backward_plain(g, core, gate, *params,  # noqa: E731
+                                                      NORM_GATE_EPS)
+        got, again = (fwd(), *bwd()), bwd()
+        for label, x, y in zip(labels, got, want):
+            err = rel_err(x, y)[1]
+            worst[label] = max(worst[label], err)
+            if err > NORM_GATE_TOL:
+                raise AssertionError(f"norm_gate {label} at F={f} M={m}: relative error "
+                                     f"{err:.3e} above {NORM_GATE_TOL:.0e}")
+        if not all(torch.equal(x, y) for x, y in zip(got[1:], again)):
+            raise AssertionError(f"norm_gate at F={f} M={m}: two backward calls differ")
+        del g, core, gate, params, ref, want, got, again  # the screen shapes' GBs
+    print(f"  norm_gate at (F, M) {cases}: worst relative errors "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} }, gradients bitwise repeated")
+    return worst
+
+
+def check_norm_gate_second_order(device: str = "cuda") -> float:
+    """The double backward through ``NormGate`` (the kernels' Functions; on
+    the CPU only with the kernels' wrappers replaced by the plain version,
+    as the CPU test does) in float32 against the plain version's autograd in
+    float64: d/d(inputs) of a weighted sum of the first-order gradients,
+    within NORM_GATE_TOL2 of each tensor's largest magnitude. Returns the
+    worst relative error."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import norm_gate as ng
+
+    f, m = NORM_GATE_CASES[0]
+    g, *inputs = norm_gate_inputs(f, m, device, seed=1)
+    _, *weights = norm_gate_inputs(f, m, device, seed=2)
+
+    def second(fn, xs, gout, ws):
+        xs = [x.detach().clone().requires_grad_(True) for x in xs]
+        grads = torch.autograd.grad(fn(*xs), xs, gout, create_graph=True)
+        return torch.autograd.grad(sum((d * w).sum() for d, w in zip(grads, ws)), xs)
+
+    got = second(lambda *xs: ng.NormGate.apply(*xs, NORM_GATE_EPS), inputs, g, weights)
+    want = second(lambda *xs: ng.norm_gate_fm_plain(*xs, NORM_GATE_EPS),
+                  [x.double() for x in inputs], g.double(), [w.double() for w in weights])
+    worst = 0.0
+    for label, x, y in zip(("core", "gate", *ng.PARAMS), got, want):
+        err = rel_err(x, y)[1]
+        worst = max(worst, err)
+        if err > NORM_GATE_TOL2:
+            raise AssertionError(f"norm_gate second order, d {label}: relative error {err:.3e} "
+                                 f"above {NORM_GATE_TOL2:.0e}")
+    print(f"  norm_gate second order through NormGate: worst relative error {worst:.2e}")
+    return worst
+
+
+def library_norm_gate(core, gate, cs, csh, gs, gsh, eps: float = NORM_GATE_EPS):
+    """The library yardstick: what the port ran before the kernels, each
+    stack transposed to (M, F) rows, ``F.layer_norm`` (scales ``cs``, ``gs``,
+    shifts ``csh``, ``gsh``), the gate, and the product transposed back (the
+    Dense biases were in the products)."""
+    import torch
+    from torch.nn import functional as F
+
+    f = core.shape[0]
+    yc = F.layer_norm(core.t().contiguous(), (f,), cs, csh, eps)
+    yg = F.layer_norm(gate.t().contiguous(), (f,), gs, gsh, eps)
+    return (F.silu(yc) * torch.sigmoid(yg)).t().contiguous()
+
+
+def time_norm_gate(name: str, flush) -> list[dict]:
+    """Both kernels at NORM_GATE_SCREEN (F 64): device us (clean flush,
+    median of 30) of the forward and of the backward call (its kernels
+    split by ``kernel_parts``), against their bounds (12 F M bytes forward,
+    20 F M backward, at the card's bandwidth); the plain version's; and the
+    library yardstick's (:func:`library_norm_gate`, and its autograd
+    backward)."""
+    import torch
+
+    from torch_m3gnet_tpu_torch.ops import norm_gate as ng
+
+    f, eps, rows = 64, NORM_GATE_EPS, []
+    for label, m in NORM_GATE_SCREEN.items():
+        g, core, gate, *params = norm_gate_inputs(f, m, "cuda")
+        fwd = lambda: ng.norm_gate_fwd_cuda(core, gate, params, eps)  # noqa: E731
+        bwd = lambda: ng.norm_gate_bwd_cuda(g, core, gate, params, eps)  # noqa: E731
+        lib_in = [t.detach().clone().requires_grad_(True) for t in (core, gate, *params[2:])]
+        lib_out = library_norm_gate(*lib_in)
+        times = {
+            "fwd_us": time_device(fwd, flush),
+            "bwd_us": time_device(bwd, flush),
+            "plain_fwd_us": time_device(lambda: ng.norm_gate_fm_plain(core, gate, *params, eps),
+                                        flush),
+            "plain_bwd_us": time_device(
+                lambda: ng.norm_gate_backward_plain(g, core, gate, *params, eps), flush),
+            "library_fwd_us": time_device(
+                lambda: library_norm_gate(core, gate, *params[2:], eps), flush),
+            "library_bwd_us": time_device(
+                lambda: torch.autograd.grad(lib_out, lib_in, g, retain_graph=True), flush),
+        }
+        row = {"m": m, "f": f, **{k: v * 1e3 for k, v in times.items()},
+               "bound_fwd_us": 12 * f * m / bandwidth(name) * 1e6,
+               "bound_bwd_us": 20 * f * m / bandwidth(name) * 1e6,
+               "bwd_parts_us": kernel_parts(bwd, flush)}
+        row["share_fwd"] = row["bound_fwd_us"] / row["fwd_us"]
+        row["share_bwd"] = row["bound_bwd_us"] / row["bwd_us"]
+        rows.append({label: row})
+        del g, core, gate, params, lib_in, lib_out
+    print(json.dumps({"norm_gate": rows}))
+    return rows
 
 
 def teacher_batch(cfg, batch, gbatch):
@@ -4325,6 +4497,9 @@ def main() -> int:
         check_batch_index(sizes)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda").zero_()  # 256 MB > L2
     time_batch_check(name, flush)
+    check_norm_gate()
+    check_norm_gate_second_order()
+    time_norm_gate(name, flush)
     del flush
 
     print("== 4. model, factorized mode (default config, seeded weights, bench batch)")

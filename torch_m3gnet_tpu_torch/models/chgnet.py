@@ -39,7 +39,9 @@ angles' ``triplet_e1`` (along its offsets) and ``triplet_e2`` (along the
 e2 order), its transpose (B7) sums the bond conv by ``triplet_e1``; the
 atom conv gathers by ``take_dst_fm`` and sums by ``edge_src`` in B8
 (``ops.sorted_segment``). Every dense layer is a float32 cuBLAS matmul on
-the card (``build_model`` turns TF32 off).
+the card (``build_model`` turns TF32 off); each phi's tail (its last
+biases, both LayerNorms and the gate) is one hand-written kernel each way
+(``ops.norm_gate``).
 
 While a torch profiler records, each atom conv runs in a
 ``chgnet.atom_conv`` span, and the angles' set-up (geometry, Fourier basis,

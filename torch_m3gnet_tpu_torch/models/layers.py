@@ -9,7 +9,8 @@ Flax parameter tree maps onto these modules by name alone; a layer computes
 
 :class:`NormGatedMLPFM` is CHGNet's (no JAX counterpart): the gated MLP
 whose twin stacks each end in a LayerNorm over the features,
-SiLU(LN(core(x))) * sigmoid(LN(gate(x))).
+SiLU(LN(core(x))) * sigmoid(LN(gate(x))), its tail one op
+(``ops.norm_gate``).
 
 The JAX package can fuse the twin dense/gate stacks into wider matmuls
 (``fuse_first``/``fuse_second``); that changes floating-point association
@@ -24,6 +25,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from torch_m3gnet_tpu_torch.ops.norm_gate import norm_gate_fm
 
 # Flax's lecun_normal: a normal truncated at two standard deviations, whose
 # std is rescaled by this factor so the variance is 1 / fan_in.
@@ -104,40 +107,18 @@ class GatedMLPFM(nn.Module):
         return d * g
 
 
-class _Transpose(torch.autograd.Function):
-    """(A, B) -> its (B, A) transpose, materialised; the gradient is the
-    gradient's transpose, materialised too (a plain ``.t().contiguous()``
-    would hand back a strided gradient, on which every elementwise kernel
-    of the backward pass runs unvectorised)."""
-
-    @staticmethod
-    def forward(x):
-        return x.t().contiguous()
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g):
-        return _Transpose.apply(g)
-
-
-def transpose(x: torch.Tensor) -> torch.Tensor:
-    """The contiguous transpose of a 2-D tensor, and of its gradient."""
-    return _Transpose.apply(x)
-
-
 class NormGatedMLPFM(nn.Module):
     """CHGNet's gated MLP, (in_features, M) -> (features, M):
     SiLU(LN(core(x))) * sigmoid(LN(gate(x))), where ``core`` and ``gate``
     are each Dense -> SiLU per hidden width of ``hidden``, then Dense to
-    ``features`` (one Dense where ``hidden`` is empty).
+    ``features`` (one Dense where ``hidden`` is empty), and each LayerNorm
+    normalises a column over its features.
 
-    The first Dense of each stack runs feature-major; its output is
-    transposed (:func:`transpose`) and the rest runs row-major, so that each
-    LayerNorm normalises contiguous rows; the product is transposed back.
-    Every tensor, and every gradient, is contiguous."""
+    Every layer runs feature-major. The last Dense of each stack is a
+    bias-free product; its bias, both LayerNorms, the SiLU, the sigmoid and
+    the product are ``ops.norm_gate`` (one kernel each way on the card).
+    ``core_norm`` and ``gate_norm`` hold the LayerNorms' weight, bias and
+    eps, so the parameters keep ``nn.LayerNorm``'s names."""
 
     def __init__(self, in_features: int, features: int, hidden: Sequence[int] = (),
                  generator: torch.Generator | None = None):
@@ -150,11 +131,13 @@ class NormGatedMLPFM(nn.Module):
             self.add_module(f"{part}_norm", nn.LayerNorm(features))
 
     def forward(self, x_fm: torch.Tensor) -> torch.Tensor:
-        out = {}
+        pre, bias = [], []
         for part in ("core", "gate"):
-            h = transpose(getattr(self, f"{part}_0")(x_fm))  # (M, width)
-            for i in range(1, self.depth):
-                layer = getattr(self, f"{part}_{i}")
-                h = torch.addmm(layer.bias.to(h.dtype), F.silu(h), layer.kernel.to(h.dtype))
-            out[part] = getattr(self, f"{part}_norm")(h)
-        return transpose(F.silu(out["core"]) * torch.sigmoid(out["gate"]))
+            h = x_fm
+            for i in range(self.depth - 1):
+                h = F.silu(getattr(self, f"{part}_{i}")(h))
+            last = getattr(self, f"{part}_{self.depth - 1}")
+            pre.append(last.kernel.to(h.dtype).t() @ h)
+            bias.append(last.bias)
+        core, gate = self.core_norm, self.gate_norm
+        return norm_gate_fm(*pre, *bias, core.weight, core.bias, gate.weight, gate.bias, core.eps)

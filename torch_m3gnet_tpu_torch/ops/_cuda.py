@@ -26,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types; every entry returns cudaError_t as int
 # and takes the stream last.
 _ENTRIES = {
@@ -54,6 +54,15 @@ _ENTRIES = {
     # (host table of (pointer, length, bound, element bytes, sort mask, range
     #  mask) int64 rows, rows, word, stream)
     "m3g_check_batch_index": [_P, _I, _P, _P],
+    # (core, gate, host array of the 6 parameter pointers, out, F, M, 16-byte
+    #  vectors, eps, stream)
+    "m3g_norm_gate_fwd": [_P] * 4 + [_I, _L, _I, _F] + [_P],
+    # (F, M, 16-byte vectors, out: the backward's rows of partial sums,
+    #  stream (unused)); launches nothing
+    "m3g_norm_gate_bwd_rows": [_I, _L, _I, _P, _P],
+    # (g, core, gate, parameters, d_core, d_gate, partial sums, their rows,
+    #  host array of the 6 gradient pointers, F, M, 16-byte vectors, eps, stream)
+    "m3g_norm_gate_bwd": [_P] * 7 + [_I, _P, _I, _L, _I, _F] + [_P],
 }
 
 _lock = threading.Lock()
@@ -165,14 +174,19 @@ def is_cuda(name: str, floats, indices) -> bool:
     return True
 
 
-def launch(name: str, entry: str, device, *args) -> None:
+def call(name: str, entry: str, device, *args) -> None:
     """Call C entry ``entry`` with ``args`` (pointers and sizes as ints) on
-    the current stream of ``device``, raise on a CUDA error, and add one to
-    the counter ``launch.<name>`` (``utils.profiling``)."""
+    the current stream of ``device`` and raise on a CUDA error."""
     import torch
 
     with torch.cuda.device(device):
         err = getattr(library(), entry)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name}: {entry} failed with CUDA error {err}")
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """:func:`call` of a kernel's launch, and add one to the counter
+    ``launch.<name>`` (``utils.profiling``)."""
+    call(name, entry, device, *args)
     profiling.count(f"launch.{name}")
