@@ -11,16 +11,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    the bench shapes (the ``src``, ``triplet_e1``, ``triplet_e2`` and
    ``edge_graph`` of the real bench batch, seeded inputs), forward and VJP:
    the composed factorized stage (B1-B3), ``fused_triplet_gate_sum``
-   through ``backward_pair`` (B4, B5, with the batch's e2 order; B5 two
-   calls bitwise equal), ``windowed_take_fm`` through
+   through ``backward_pair`` (B4, B5, with the batch's e1 offsets and e2
+   order; B5 two calls bitwise equal), ``windowed_take_fm`` through
    ``windowed_scatter_fm`` (B6, B7; B7 sums along the batch's owners of
    each index, the ``triplet_e1`` offsets and the e2 order, two calls
-   bitwise equal; also without owners, which its wrapper then builds), and
-   ``sorted_segment_sum`` (B8) at the
-   four sorted sums of the path, with the batch's offsets where the model
-   passes them: forward, VJP (the gather), gradient of the gradient (B8
-   again), two calls bitwise equal and equal to a call that runs the
-   kernel's own offsets pass; then B1-B5 and B7 on
+   bitwise equal; also along each index's stable order), and
+   ``sorted_segment_sum`` (B8) at the four sorted sums of the path, with
+   the offsets the model passes (the batch's; the strain stress's from
+   ``Potential.assemble``): forward, VJP (the gather), gradient of the
+   gradient (B8 again), two calls bitwise equal; then B1-B5 and B7 on
    the sorted indices of ``SORTED_CASES`` (one segment owning every entry, a
    20,480-entry run, runs across chunk boundaries, a ragged segment count,
    long stretches of empty segments; B4 and B5 with uniform random e2) at
@@ -496,30 +495,32 @@ def check_sorted_index_cases() -> None:
     for case in SORTED_CASES:
         for l_max, n_max in ((1, 1), (3, 3), (4, 4)):
             sh, gm, src, n = q_case_inputs(case, l_max, n_max)
-            args = (*(torch.as_tensor(x, device="cuda") for x in (sh, gm, src)), n, l_max, n_max)
+            tsh, tgm, ts = (torch.as_tensor(x, device="cuda") for x in (sh, gm, src))
+            off = ss.sorted_segment_offsets(ts, n)
             tag = f"{case} (l_max, n_max) = ({l_max}, {n_max}), E = {src.shape[0]}, N = {n}"
-            run(f"q_scatter {tag}", lambda: fs.q_scatter(*args), lambda: fs.q_scatter_plain(*args))
+            run(f"q_scatter {tag}", lambda: fs.q_scatter(tsh, tgm, ts, off, n, l_max, n_max),
+                lambda: fs.q_scatter_plain(tsh, tgm, ts, n, l_max, n_max))
             for op in ("r1_gather", "r2_gather"):
-                a, x, r_src, _ = r_case_inputs(case, op, l_max, n_max)
-                ta, tx, ts = (torch.as_tensor(v, device="cuda") for v in (a, x, r_src))
+                a, x, _, _ = r_case_inputs(case, op, l_max, n_max)
+                ta, tx = (torch.as_tensor(v, device="cuda") for v in (a, x))
                 plain = getattr(fs, f"{op}_plain")
                 # the operand as given and as an unaligned offset view
                 for label, operand in (("", tx), (", offset operand", offset_view(tx))):
                     run(f"{op} {tag}{label}",
-                        lambda: getattr(fs, op)(ta, operand, ts, l_max, n_max),
+                        lambda: getattr(fs, op)(ta, operand, ts, off, l_max, n_max),
                         lambda: plain(ta, operand, ts, l_max, n_max))
         for ln in (1, 9, 16):
             basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
             g = dyadic(np.random.default_rng(60 + ln), gate.shape)
             tb, tgt, tg, te1, te2 = (torch.as_tensor(x, device="cuda")
                                      for x in (basis, gate, g, e1, e2))
-            order = ft.triplet_e2_order(te2, e)
+            off1, order = ss.sorted_segment_offsets(te1, e), ft.triplet_e2_order(te2, e)
             tag = f"{case} LN = {ln}, T = {e1.shape[0]}, E = {e}"
             run(f"fused_triplet_gate_sum {tag}",
-                lambda: ft.fused_triplet_gate_sum(tb, tgt, te1, te2, e, order),
+                lambda: ft.fused_triplet_gate_sum(tb, tgt, te1, te2, e, off1, order),
                 lambda: ft.fused_triplet_gate_sum_plain(tb, tgt, te1, te2, e))
             run(f"backward_pair {tag}",
-                lambda: ft.backward_pair(tb, tgt, tg, te1, te2, e, order),
+                lambda: ft.backward_pair(tb, tgt, tg, te1, te2, e, off1, order),
                 lambda: ft.backward_pair_plain(tb, tgt, tg, te1, te2, e))
         vals, e1, e2, e = scatter_case_inputs(case)
         tv, te1, te2 = (torch.as_tensor(x, device="cuda") for x in (vals, e1, e2))
@@ -534,9 +535,10 @@ def check_sorted_index_cases() -> None:
     print("  every case: equal to the plain version, two calls bitwise equal")
 
 
-def check_kernels(src, num_nodes: int, l_max: int, n_max: int,
+def check_kernels(src, offsets, num_nodes: int, l_max: int, n_max: int,
                   edge_mask=None) -> dict[str, float]:
-    """Each kernel against its plain version, forward and composed VJP.
+    """Each of B1-B3 against its plain version, forward and composed VJP,
+    by the sorted ``src`` and its run ``offsets`` (the batch's).
     With ``edge_mask``, gm and the VJP's cotangent are zero on padded
     edges, as the model's are (its cutoff factor carries the mask): a batch
     padded far beyond its real edges then puts no sum of thousands of
@@ -553,13 +555,13 @@ def check_kernels(src, num_nodes: int, l_max: int, n_max: int,
     errs = {}
     with torch.no_grad():
         errs["q_scatter"] = check(
-            "q_scatter", fs.q_scatter(sh, gm, src, num_nodes, l_max, n_max),
+            "q_scatter", fs.q_scatter(sh, gm, src, offsets, num_nodes, l_max, n_max),
             fs.q_scatter_plain(sh, gm, src, num_nodes, l_max, n_max), FWD_TOL)
         errs["r1_gather"] = check(
-            "r1_gather", fs.r1_gather(a, sh, src, l_max, n_max),
+            "r1_gather", fs.r1_gather(a, sh, src, offsets, l_max, n_max),
             fs.r1_gather_plain(a, sh, src, l_max, n_max), FWD_TOL)
         errs["r2_gather"] = check(
-            "r2_gather", fs.r2_gather(a, gm, src, l_max, n_max),
+            "r2_gather", fs.r2_gather(a, gm, src, offsets, l_max, n_max),
             fs.r2_gather_plain(a, gm, src, l_max, n_max), FWD_TOL)
 
     def stage_grads(q, r1):
@@ -567,11 +569,21 @@ def check_kernels(src, num_nodes: int, l_max: int, n_max: int,
         proj = r1(q(s, g, src, num_nodes, l_max, n_max), s, src, l_max, n_max)
         return torch.autograd.grad((torch.sin(proj - g) * emask).sum(), (s, g))
 
-    got = stage_grads(fs.q_scatter, fs.r1_gather)
+    got = stage_grads(*stage_kernels(offsets))
     want = stage_grads(fs.q_scatter_plain, fs.r1_gather_plain)
     check("stage VJP d_sh (r2 + r2 kernels)", got[0], want[0], VJP_TOL)
     check("stage VJP d_gm (r1 + q kernels)", got[1], want[1], VJP_TOL)
     return errs
+
+
+def stage_kernels(offsets):
+    """B1 and B2 with the run offsets of their ``src`` bound, called as their
+    plain versions are."""
+    from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
+
+    return (lambda sh, gm, src, n, l_max, n_max: fs.q_scatter(sh, gm, src, offsets, n, l_max,
+                                                              n_max),
+            lambda a, sh, src, l_max, n_max: fs.r1_gather(a, sh, src, offsets, l_max, n_max))
 
 
 # The hand kernels' ops, each counted as ``launch.<op>`` by ``ops._cuda.launch``.
@@ -622,8 +634,8 @@ def expected_launches(mode: str, nb: int, train: bool, remat: bool = False) -> d
 def check_triplet_kernels(gbatch, ln: int, f: int = 4, masked: bool = False) -> dict[str, float]:
     """B4-B7 against their plain versions on the batch's real triplet_e1
     (sorted) and triplet_e2 (unsorted), forward and VJP, with the batch's
-    owners of each (B7 also without them, so that its wrapper builds the
-    stable order: bitwise equal to a call given that order). ``masked``:
+    owners of each (B7 also by each index's stable order, which by e1 is
+    the identity: the ordered path at the bench shape). ``masked``:
     B7's values and the take VJP's cotangent are zero on padded triplets,
     as the model's are (its basis carries the mask)."""
     import torch
@@ -635,15 +647,16 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4, masked: bool = False) -> 
     tmask = gbatch.triplet_mask.to(vals.dtype) if masked else 1.0
     vals = vals * tmask
     e1, e2, e = gbatch.triplet_e1, gbatch.triplet_e2, gbatch.num_edges
-    order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
-    owners = {"e1": (None, gbatch.triplet_e1_offsets), "e2": order}
+    off1, order = gbatch.triplet_e1_offsets, (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
+    owners = {"e1": (None, off1), "e2": order}
     errs = {}
     with torch.no_grad():
         errs["fused_triplet_gate_sum"] = check(
-            "fused_triplet_gate_sum", ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, order),
+            "fused_triplet_gate_sum",
+            ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, off1, order),
             ft.fused_triplet_gate_sum_plain(basis, gate, e1, e2, e), FWD_TOL)
-        got = ft.backward_pair(basis, gate, g, e1, e2, e, order)
-        again = ft.backward_pair(basis, gate, g, e1, e2, e, order)
+        got = ft.backward_pair(basis, gate, g, e1, e2, e, off1, order)
+        again = ft.backward_pair(basis, gate, g, e1, e2, e, off1, order)
         want = ft.backward_pair_plain(basis, gate, g, e1, e2, e)
         errs["backward_pair"] = max(check("backward_pair d_basis", got[0], want[0], FWD_TOL),
                                     check("backward_pair d_gate", got[1], want[1], FWD_TOL))
@@ -659,23 +672,21 @@ def check_triplet_kernels(gbatch, ln: int, f: int = 4, masked: bool = False) -> 
             scatter_errs.append(check(f"windowed_scatter_fm ({label})", got,
                                       wt.scatter_fm_plain(vals, idx, e), FWD_TOL))
             again = wt.windowed_scatter_fm(vals, idx, e, owners[label])
-            # without owners the wrapper builds the stable order (by e1 the
-            # identity: the ordered path, in other blocks than by offsets)
-            own = wt.windowed_scatter_fm(vals, idx, e)
+            # by the stable order (by e1 the identity: the ordered path, in
+            # other blocks than by offsets)
             by_order = wt.windowed_scatter_fm(vals, idx, e, ft.triplet_e2_order(idx, e))
-            check(f"windowed_scatter_fm ({label}, its own owners)", own,
+            check(f"windowed_scatter_fm ({label}, by its stable order)", by_order,
                   wt.scatter_fm_plain(vals, idx, e), FWD_TOL)
-            if not (torch.equal(got, again) and torch.equal(own, by_order)):
+            if not torch.equal(got, again):
                 raise AssertionError(f"windowed_scatter_fm ({label}): calls differ")
-        print("  windowed_scatter_fm: two calls bitwise equal; a call that builds its own "
-              "owners equal to one given the stable order")
+        print("  windowed_scatter_fm: two calls bitwise equal")
         errs["windowed_take_fm"], errs["windowed_scatter_fm"] = max(take_errs), max(scatter_errs)
 
     def fused_grads(fused):
         b, gt = basis.clone().requires_grad_(True), gate.clone().requires_grad_(True)
         return torch.autograd.grad(torch.sin(fused(b, gt)).sum(), (b, gt))
 
-    got = fused_grads(lambda b, gt: ft.fused_triplet_gate_sum(b, gt, e1, e2, e, order))
+    got = fused_grads(lambda b, gt: ft.fused_triplet_gate_sum(b, gt, e1, e2, e, off1, order))
     want = fused_grads(lambda b, gt: ft.fused_triplet_gate_sum_plain(b, gt, e1, e2, e))
     check("fused VJP d_basis (backward_pair kernel)", got[0], want[0], VJP_TOL)
     check("fused VJP d_gate (backward_pair kernel)", got[1], want[1], VJP_TOL)
@@ -786,12 +797,14 @@ def check_fused_model(pot, out_factorized, batch, gbatch, cfg):
 
 
 def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int, object]]:
-    """(label, F, sorted ids, segments, the batch's offsets of the ids or
-    None) of the four sorted sums that B8 takes on the path, at the batch's
-    shapes, as the model calls them: the node aggregation (per block) and
-    the forces by ``edge_src``, the gather-mode triplet->edge sum by
-    ``triplet_e1`` (these three with the batch's offsets), the strain stress
-    by ``edge_graph`` (with the kernel's own offsets pass)."""
+    """(label, F, sorted ids, segments, the offsets of the ids) of the four
+    sorted sums that B8 takes on the path, at the batch's shapes, as the
+    model calls them: the node aggregation (per block) and the forces by
+    ``edge_src``, the gather-mode triplet->edge sum by ``triplet_e1`` (these
+    three with the batch's offsets), the strain stress by ``edge_graph``
+    (with the offsets that ``Potential.assemble`` builds)."""
+    from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
+
     src = gbatch.edge_src
     edge_graph = gbatch.node_graph.index_select(0, src)
     return [
@@ -799,7 +812,8 @@ def sorted_sum_cases(gbatch) -> list[tuple[str, int, object, int, object]]:
         ("gather-mode e1 sum", 9, gbatch.triplet_e1, gbatch.num_edges,
          gbatch.triplet_e1_offsets),
         ("forces by src", 3, src, gbatch.num_nodes, gbatch.edge_src_offsets),
-        ("strain stress by edge_graph", 9, edge_graph, gbatch.num_graphs, None),
+        ("strain stress by edge_graph", 9, edge_graph, gbatch.num_graphs,
+         sorted_segment_offsets(edge_graph, gbatch.num_graphs)),
     ]
 
 
@@ -813,9 +827,8 @@ def seeded(shape, device, seed: int):
 def check_sorted_segment(gbatch, masked: bool = False) -> float:
     """B8 against its plain version (``index_add``) at the four shapes, as
     the model calls it: forward, VJP (the gather), gradient of the gradient
-    (whose backward runs B8 again), two kernel calls bitwise equal, and,
-    where the batch's offsets are given, bitwise equal to the call that
-    runs the kernel's own offsets pass. ``masked``: the summed values and
+    (whose backward runs B8 again), two kernel calls bitwise equal.
+    ``masked``: the summed values and
     the second cotangent are zero on padded edges (triplets), as the
     model's are."""
     import torch
@@ -834,13 +847,11 @@ def check_sorted_segment(gbatch, masked: bool = False) -> float:
         with torch.no_grad():
             got = ss.sorted_segment_sum_fm(x, seg, nseg, off)
             again = ss.sorted_segment_sum_fm(x, seg, nseg, off)
-            own_pass = ss.sorted_segment_sum_fm(x, seg, nseg)
             errs.append(check(f"sorted_segment_sum {label} (F={f}, M={seg.shape[0]}, S={nseg})",
                               got, ss.sorted_segment_sum_fm_plain(x, seg, nseg), FWD_TOL))
-        if not (torch.equal(got, again) and torch.equal(got, own_pass)):
+        if not torch.equal(got, again):
             raise AssertionError(f"sorted_segment_sum {label}: two calls differ")
-        print(f"  sorted_segment_sum {label}: two calls bitwise equal"
-              + ("" if off is None else ", and equal to the kernel's own offsets pass"))
+        print(f"  sorted_segment_sum {label}: two calls bitwise equal")
 
         def vjp(op):
             xx = x.clone().requires_grad_(True)
@@ -932,26 +943,28 @@ def member_specs(gbatch, cfg) -> dict:
     m, ln, mn = l_max * l_max, l_max * n_max, l_max * l_max * n_max
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
     order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
-    e1_owners = (None, gbatch.triplet_e1_offsets)
+    off1, e1_owners = gbatch.triplet_e1_offsets, (None, gbatch.triplet_e1_offsets)
     node_off = gbatch.edge_src_offsets
     a_b, src_b, idx_b = 4 * mn * num_nodes, 4 * e, 4 * t
     one = lambda name: {name: 1}  # noqa: E731
     return {
-        "q_scatter": (lambda sh, gm: fs.q_scatter(sh, gm, src, num_nodes, l_max, n_max),
+        # B1 reads src's offsets, not src; B4 e1's offsets, not e1
+        "q_scatter": (lambda sh, gm: fs.q_scatter(sh, gm, src, node_off, num_nodes, l_max, n_max),
                       [(m, e), (ln, e)], (None, 0), one("q_scatter"),
-                      4 * m * e + k * 4 * ln * e + src_b + k * a_b, k * 2 * mn * e),
-        "r1_gather": (lambda a, sh: fs.r1_gather(a, sh, src, l_max, n_max),
+                      4 * m * e + k * 4 * ln * e + 4 * (num_nodes + 1) + k * a_b,
+                      k * 2 * mn * e),
+        "r1_gather": (lambda a, sh: fs.r1_gather(a, sh, src, node_off, l_max, n_max),
                       [(mn, num_nodes), (m, e)], (0, None), one("r1_gather"),
                       k * a_b + 4 * m * e + k * 4 * ln * e + src_b, k * 2 * mn * e),
-        "r2_gather": (lambda a, gm: fs.r2_gather(a, gm, src, l_max, n_max),
+        "r2_gather": (lambda a, gm: fs.r2_gather(a, gm, src, node_off, l_max, n_max),
                       [(mn, num_nodes), (ln, e)], (0, 0), one("r2_gather"),
                       k * (a_b + 4 * (ln + m) * e) + src_b, k * 2 * mn * e),
         "fused_triplet_gate_sum": (
-            lambda b, g: ft.fused_triplet_gate_sum(b, g, e1, e2, e, order),
+            lambda b, g: ft.fused_triplet_gate_sum(b, g, e1, e2, e, off1, order),
             [(ln, t), (ln, e)], (None, 0), one("fused_triplet_gate_sum"),
-            4 * ln * t + 2 * idx_b + k * 4 * 2 * ln * e, k * 2 * ln * t),
+            4 * ln * t + idx_b + 4 * (e + 1) + k * 4 * 2 * ln * e, k * 2 * ln * t),
         "backward_pair": (
-            lambda b, g, c: ft.backward_pair(b, g, c, e1, e2, e, order),
+            lambda b, g, c: ft.backward_pair(b, g, c, e1, e2, e, off1, order),
             [(ln, t), (ln, e), (ln, e)], (None, 0, 0), one("backward_pair"),
             4 * ln * t + 2 * idx_b + k * 4 * (ln * t + 3 * ln * e), k * 3 * ln * t),
         "windowed_take_fm": (
@@ -1016,12 +1029,15 @@ def check_member_rules(gbatch, cfg) -> None:
         for l_max, n_max in ((1, 1), (3, 3), (4, 4)):
             sh, gm, src, n = q_case_inputs(case, l_max, n_max)
             tsrc = torch.as_tensor(src, device=dev)
+            off = ss.sorted_segment_offsets(tsrc, n)
             a = dyadic(rng, (l_max * l_max * n_max, n))
             for op, first, second, fn in (
                     ("q_scatter", sh, gm,
-                     lambda x, y: fs.q_scatter(x, y, tsrc, n, l_max, n_max)),
-                    ("r1_gather", a, sh, lambda x, y: fs.r1_gather(x, y, tsrc, l_max, n_max)),
-                    ("r2_gather", a, gm, lambda x, y: fs.r2_gather(x, y, tsrc, l_max, n_max))):
+                     lambda x, y: fs.q_scatter(x, y, tsrc, off, n, l_max, n_max)),
+                    ("r1_gather", a, sh,
+                     lambda x, y: fs.r1_gather(x, y, tsrc, off, l_max, n_max)),
+                    ("r2_gather", a, gm,
+                     lambda x, y: fs.r2_gather(x, y, tsrc, off, l_max, n_max))):
                 batched = members_of(first.shape, second.shape)
                 shared = [torch.as_tensor(x, device=dev) for x in (first, second)]
                 for pattern in member_patterns(2):
@@ -1032,15 +1048,15 @@ def check_member_rules(gbatch, cfg) -> None:
         for ln in (1, 9, 16):
             basis, gate, e1, e2, e = triplet_case_inputs(case, ln)
             te1, te2 = (torch.as_tensor(x, device=dev) for x in (e1, e2))
-            order = ft.triplet_e2_order(te2, e)
+            off1, order = ss.sorted_segment_offsets(te1, e), ft.triplet_e2_order(te2, e)
             g = dyadic(rng, gate.shape)
             batched = members_of(basis.shape, gate.shape, gate.shape)
             shared = [torch.as_tensor(x, device=dev) for x in (basis, gate, g)]
             for op, fn in (
                     ("fused_triplet_gate_sum",
-                     lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, order)),
+                     lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, off1, order)),
                     ("backward_pair",
-                     lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, order))):
+                     lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, off1, order))):
                 n = 2 if op == "fused_triplet_gate_sum" else 3
                 for pattern in member_patterns(n):
                     ops = [s if d is None else b for b, s, d in zip(batched, shared, pattern)]
@@ -1063,8 +1079,9 @@ def check_member_rules(gbatch, cfg) -> None:
             calls += 2
         seg, nseg = sorted_index_case(case)
         tseg = torch.as_tensor(seg, device=dev)
+        seg_off = ss.sorted_segment_offsets(tseg, nseg)
         vmapped_vs_members(f"sorted_segment_sum {case}",
-                           lambda d: ss.sorted_segment_sum_fm(d, tseg, nseg),
+                           lambda d: ss.sorted_segment_sum_fm(d, tseg, nseg, seg_off),
                            members_of((4, seg.shape[0])), (0,),
                            {"sorted_segment_sum": 1})
         calls += 1
@@ -1132,30 +1149,31 @@ def check_grid_slices() -> None:
     k, e, n = GRID_MEMBERS, 64, 8
     src = torch.sort(torch.randint(0, n, (e,), generator=gen, device="cuda"))[0].to(torch.int32)
     sh, gm_k, a_k, b_k = normal(1, e), normal(k, 1, e), normal(k, 1, n), normal(k, 1, e)
-    lsrc = src.long()
+    lsrc, off = src.long(), ss.sorted_segment_offsets(src, n)
     q_want = torch.zeros(k, 1, n, device="cuda").index_add_(2, lsrc, sh * gm_k)
-    held("q_scatter, gm batched", lambda x, y: fs.q_scatter(x, y, src, n, 1, 1), [sh, gm_k],
-         (None, 0), q_want, GRID_Y)
-    held("r1_gather, A batched", lambda x, y: fs.r1_gather(x, y, src, 1, 1), [a_k, sh],
+    held("q_scatter, gm batched", lambda x, y: fs.q_scatter(x, y, src, off, n, 1, 1),
+         [sh, gm_k], (None, 0), q_want, GRID_Y)
+    held("r1_gather, A batched", lambda x, y: fs.r1_gather(x, y, src, off, 1, 1), [a_k, sh],
          (0, None), sh * a_k[:, :, lsrc], GRID_Y)
-    held("r2_gather, both batched", lambda x, y: fs.r2_gather(x, y, src, 1, 1), [a_k, b_k],
+    held("r2_gather, both batched", lambda x, y: fs.r2_gather(x, y, src, off, 1, 1), [a_k, b_k],
          (0, 0), b_k * a_k[:, :, lsrc], GRID_Y)
 
     t, ne = 64, 16
     e1 = torch.sort(torch.randint(0, ne, (t,), generator=gen, device="cuda"))[0].to(torch.int32)
     e2 = torch.randint(0, ne, (t,), generator=gen, device="cuda", dtype=torch.int32)
     l1, l2, order = e1.long(), e2.long(), ft.triplet_e2_order(e2, ne)
+    off1 = ss.sorted_segment_offsets(e1, ne)
     basis, basis_k, gate, gate_k, g_k = (
         normal(1, t), normal(k, 1, t), normal(1, ne), normal(k, 1, ne), normal(k, 1, ne))
     fwd_want = torch.zeros(k, 1, ne, device="cuda").index_add_(2, l1, basis * gate_k[:, :, l2])
     pair_want = (g_k[:, :, l1] * gate[:, l2],
                  torch.zeros(k, 1, ne, device="cuda").index_add_(2, l2, g_k[:, :, l1] * basis_k))
     held("fused_triplet_gate_sum, gate batched",
-         lambda b, q: ft.fused_triplet_gate_sum(b, q, e1, e2, ne, order), [basis, gate_k],
-         (None, 0), fwd_want, GRID_Y)
+         lambda b, q: ft.fused_triplet_gate_sum(b, q, e1, e2, ne, off1, order),
+         [basis, gate_k], (None, 0), fwd_want, GRID_Y)
     held("backward_pair, basis and g batched",
-         lambda b, q, c: ft.backward_pair(b, q, c, e1, e2, ne, order), [basis_k, gate, g_k],
-         (0, None, 0), pair_want, GRID_Y)
+         lambda b, q, c: ft.backward_pair(b, q, c, e1, e2, ne, off1, order),
+         [basis_k, gate, g_k], (0, None, 0), pair_want, GRID_Y)
     vals = normal(k, 4, t)
     for label, idx, owners in (("sorted", e1, (None, ss.sorted_segment_offsets(e1, ne))),
                                ("unsorted", e2, ft.triplet_e2_order(e2, ne))):
@@ -1168,10 +1186,11 @@ def check_grid_slices() -> None:
         data = normal(1100, 64, m)
         want = torch.zeros(1100, 64, nseg, device="cuda").index_add_(2, seg, data)
         seg = seg.to(torch.int32)
+        seg_off = ss.sorted_segment_offsets(seg, nseg)
         # one row a block, so the slice bounds fall inside members: every
         # member against its own call
         held(f"sorted_segment_sum, 64 rows a member, {label}",
-             lambda d: ss.sorted_segment_sum_fm(d, seg, nseg), [data], (0,), want, 1)
+             lambda d: ss.sorted_segment_sum_fm(d, seg, nseg, seg_off), [data], (0,), want, 1)
         del data, want
     print(f"  grid slices checked in {time.perf_counter() - t0:.1f} s")
 
@@ -1682,8 +1701,8 @@ PROFILE_PAD_S = 0.05
 def kernel_parts(fn, flush, calls: int = 10, copies: bool = False) -> dict[str, float]:
     """Device time (us per call of ``fn``) of each CUDA kernel that ``fn``
     launches, from torch.profiler over ``calls`` calls after a clean flush:
-    where one wrapper call launches two kernels (the offsets pass and the
-    sum), how the time splits. ``copies``: keep torch's elementwise, fill
+    where one call launches several kernels, how the time splits.
+    ``copies``: keep torch's elementwise, fill
     and copy kernels too (the spin and the flush's sums stay out).
 
     The profiler drops device records at its window's ends, and cuts some
@@ -1778,7 +1797,8 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
     e, t = gbatch.num_edges, gbatch.num_triplets
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
     order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
-    e1_owners = (None, gbatch.triplet_e1_offsets)
+    node_off, off1 = gbatch.edge_src_offsets, gbatch.triplet_e1_offsets
+    e1_owners = (None, off1)
     m, ln, mn = l_max * l_max, l_max * n_max, l_max * l_max * n_max
     sh, gm, a = stage_inputs(num_nodes, e, l_max, n_max, src.device)
     f = 4
@@ -1796,33 +1816,34 @@ def time_kernels(gbatch, cfg, card_name, launches, errs) -> list[dict]:
 
     specs = {
         # name: (source, kernel calls, plain calls, library calls or None,
-        #        bytes moved: inputs once + outputs once, flops, TPU kernel)
+        #        bytes moved: inputs once + outputs once, flops, TPU kernel);
+        # B1 reads src's offsets and B4 e1's, not the ids
         "q_scatter": (
-            fs_src, [lambda: fs.q_scatter(sh, gm, src, num_nodes, l_max, n_max)],
+            fs_src, [lambda: fs.q_scatter(sh, gm, src, node_off, num_nodes, l_max, n_max)],
             [lambda: fs.q_scatter_plain(sh, gm, src, num_nodes, l_max, n_max)], None,
-            4 * (m + ln) * e + src_bytes + a_bytes, 2 * mn * e,
+            4 * (m + ln) * e + 4 * (num_nodes + 1) + a_bytes, 2 * mn * e,
             "torch_m3gnet_tpu/ops/pallas_factorized_stage.py:230",
         ),
         "r1_gather": (
-            fs_src, [lambda: fs.r1_gather(a, sh, src, l_max, n_max)],
+            fs_src, [lambda: fs.r1_gather(a, sh, src, node_off, l_max, n_max)],
             [lambda: fs.r1_gather_plain(a, sh, src, l_max, n_max)], None,
             a_bytes + 4 * (m + ln) * e + src_bytes, 2 * mn * e,
             "torch_m3gnet_tpu/ops/pallas_factorized_stage.py:340",
         ),
         "r2_gather": (
-            fs_src, [lambda: fs.r2_gather(a, gm, src, l_max, n_max)],
+            fs_src, [lambda: fs.r2_gather(a, gm, src, node_off, l_max, n_max)],
             [lambda: fs.r2_gather_plain(a, gm, src, l_max, n_max)], None,
             a_bytes + 4 * (ln + m) * e + src_bytes, 2 * mn * e,
             "torch_m3gnet_tpu/ops/pallas_factorized_stage.py:340",
         ),
         "fused_triplet_gate_sum": (
-            ft_src, [lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, order)],
+            ft_src, [lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, off1, order)],
             [lambda: ft.fused_triplet_gate_sum_plain(basis, gate, e1, e2, e)], None,
-            4 * ln * t + 2 * idx_bytes + 4 * 2 * ln * e, 2 * ln * t,
+            4 * ln * t + idx_bytes + 4 * (e + 1) + 4 * 2 * ln * e, 2 * ln * t,
             "torch_m3gnet_tpu/ops/pallas_fused_triplet.py:381",
         ),
         "backward_pair": (
-            ft_src, [lambda: ft.backward_pair(basis, gate, g, e1, e2, e, order)],
+            ft_src, [lambda: ft.backward_pair(basis, gate, g, e1, e2, e, off1, order)],
             [lambda: ft.backward_pair_plain(basis, gate, g, e1, e2, e)], None,
             4 * 2 * ln * t + 2 * idx_bytes + 4 * 3 * ln * e, 3 * ln * t,
             "torch_m3gnet_tpu/ops/pallas_fused_triplet.py:513",
@@ -1949,9 +1970,9 @@ def time_sorted_segment(gbatch, card_name, flush) -> list[dict]:
         for i, (label, f, seg, nseg, off) in enumerate(sorted_sum_cases(gbatch)):
             x = seeded((f, seg.shape[0]), seg.device, 10 + i)
             m = seg.shape[0]
-            # data and output once, and the index the call reads: the
-            # batch's S + 1 offsets where given, else the M sorted ids
-            nbytes = 4 * f * m + (4 * (nseg + 1) if off is not None else 4 * m) + 4 * f * nseg
+            # data and output once, and the index the call reads: the S + 1
+            # offsets of the sorted ids
+            nbytes = 4 * f * m + 4 * (nseg + 1) + 4 * f * nseg
             bytes_ms, ops_ms = nbytes / bw * 1e3, f * m / F32_FLOPS * 1e3
             l2 = l2_times(lambda: ss.sorted_segment_sum_fm(x, seg, nseg, off), flush)
             plain_ms = time_device(lambda: ss.sorted_segment_sum_fm_plain(x, seg, nseg), flush)
@@ -1972,7 +1993,6 @@ def time_sorted_segment(gbatch, card_name, flush) -> list[dict]:
                 "cold_dirty_us": l2["cold_dirty_us"],
                 "warm_us": l2["warm_us"],
                 "bytes": nbytes,
-                "offsets": "the batch's" if off is not None else "the kernel's own pass",
                 "parts_us": kernel_parts(lambda: ss.sorted_segment_sum_fm(x, seg, nseg, off),
                                          flush),
             })
@@ -2846,7 +2866,8 @@ def step_errors(cfg, cpu_grads, before, grads, after) -> tuple[float, float]:
     return grad_err, update_err
 
 
-def stage_vjp_vs_f64(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, float]:
+def stage_vjp_vs_f64(src, offsets, num_nodes: int, l_max: int,
+                     n_max: int) -> dict[str, float]:
     """The stage VJP of ``check_kernels`` on unmasked inputs, the kernels'
     and the plain version's (both f32) each against the plain version in
     f64, the worst of d_sh and d_gm relative to its largest magnitude: a
@@ -2865,7 +2886,7 @@ def stage_vjp_vs_f64(src, num_nodes: int, l_max: int, n_max: int) -> dict[str, f
     exact = grads(fs.q_scatter_plain, fs.r1_gather_plain, torch.float64)
     return {name: max(rel_err(got, want)[1]
                       for got, want in zip(grads(q, r1, torch.float32), exact))
-            for name, q, r1 in (("kernel", fs.q_scatter, fs.r1_gather),
+            for name, q, r1 in (("kernel", *stage_kernels(offsets)),
                                 ("plain_f32", fs.q_scatter_plain, fs.r1_gather_plain))}
 
 
@@ -2916,12 +2937,14 @@ def workflow_step_checks(cfg, graphs, device: str = "cuda") -> dict:
         print(f"  kernels vs plain at the {where} shape (N, E, T) = "
               f"{(batch.num_nodes, batch.num_edges, batch.num_triplets)}")
         gb = to_torch(batch, device, torch.float32)
-        errs = check_kernels(gb.edge_src, gb.num_nodes, cfg.l_max, cfg.n_max, gb.edge_mask)
+        errs = check_kernels(gb.edge_src, gb.edge_src_offsets, gb.num_nodes, cfg.l_max,
+                             cfg.n_max, gb.edge_mask)
         errs.update(check_triplet_kernels(gb, cfg.l_max * cfg.n_max, masked=True))
         errs["sorted_segment_sum"] = check_sorted_segment(gb, masked=True)
         kernels[where] = errs
     gb = to_torch(batches["bucket"], device, torch.float32)
-    unmasked = stage_vjp_vs_f64(gb.edge_src, gb.num_nodes, cfg.l_max, cfg.n_max)
+    unmasked = stage_vjp_vs_f64(gb.edge_src, gb.edge_src_offsets, gb.num_nodes, cfg.l_max,
+                                cfg.n_max)
     print(f"  stage VJP at the bucket, unmasked (read, not asserted): against f64, kernels "
           f"{unmasked['kernel']:.3e}, plain f32 {unmasked['plain_f32']:.3e}; padded edges "
           f"{gb.num_edges - int(gb.edge_mask.sum())} of {gb.num_edges}; most edges on one node "
@@ -4470,8 +4493,7 @@ def main() -> int:
     log = lib_path.with_suffix(".so.log").read_text().splitlines()
     for i, line in enumerate(log):  # ptxas report of the kernels the default model runs
         if "Compiling entry function" in line and (
-            any(k in line for k in ("Li3ELi3E", "Li9E", "windowed", "segment_offsets",
-                                    "segment_sum_block"))
+            any(k in line for k in ("Li3ELi3E", "Li9E", "windowed", "segment_sum_block"))
             or ("segment_sum_tiled" in line and any(k in line for k in ("Li1E", "Li4E")))
         ):
             print("\n".join("  " + x.strip() for x in log[i : i + 4]))
@@ -4487,7 +4509,8 @@ def main() -> int:
         raise AssertionError(f"bench batch differs from {BENCH_SHAPES}, {BENCH_REAL}")
     cfg = M3GNetConfig()
     gbatch = to_torch(batch, "cuda", torch.float32)
-    errs = check_kernels(gbatch.edge_src, gbatch.num_nodes, cfg.l_max, cfg.n_max)
+    errs = check_kernels(gbatch.edge_src, gbatch.edge_src_offsets, gbatch.num_nodes,
+                         cfg.l_max, cfg.n_max)
     errs.update(check_triplet_kernels(gbatch, cfg.l_max * cfg.n_max))
     errs["sorted_segment_sum"] = check_sorted_segment(gbatch)
     check_sorted_index_cases()

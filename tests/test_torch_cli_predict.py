@@ -114,6 +114,40 @@ def assert_close(got, want, path=""):
                                    rtol=RTOL, atol=ATOL, err_msg=path)
 
 
+def test_predict_packs_the_bond_pairs_chgnet_reads(tmp_path, capsys):
+    """A narrow CHGNet config through the ``predict`` CLI: it packs each
+    batch with the bond pairs (``edge_reverse``) that CHGNet's
+    ``batch_index`` names, and prints E/F/S and the per-atom magnetic
+    moments, equal to the seeded potential on the same batches."""
+    from torch_m3gnet_tpu_torch.cli.common import load_structures
+    from torch_m3gnet_tpu_torch.data.graph import pack_structures
+
+    cfg = tmp_path / "chgnet.yaml"
+    cfg.write_text("architecture: chgnet\nthreebody_cutoff: 3.0\nembedding_dim: 8\n"
+                   "num_blocks: 4\n")
+    cells = write_cells(tmp_path)
+    got = run_port(capsys, predict.main, ["--structures", cells, "--config", str(cfg),
+                                          "--seed", "3", "--batch-size", "2", "--device", "cpu"])
+    config = M3GNetConfig.from_yaml(str(cfg))
+    pot = build_model(config, device="cpu", generator=torch.Generator().manual_seed(3))
+    structs = load_structures(cells)
+    want = []
+    for lo in (0, 2):
+        batch = pack_structures(structs[lo:lo + 2], config.cutoff, config.threebody_cutoff,
+                                bond_pairs=True)
+        out = pot(batch)
+        for gi, s in enumerate(structs[lo:lo + 2]):
+            sel = (batch.node_graph == gi) & batch.node_mask
+            want.append({"energy": float(out.energy.detach()[gi]),
+                         "energy_per_atom": float(out.energy_per_atom.detach()[gi]),
+                         "forces": out.forces.detach()[sel].tolist(),
+                         "stress_voigt": out.stress.detach()[gi].tolist(),
+                         "num_atoms": len(s),
+                         "magmom": out.magmom.detach()[sel].tolist()})
+    assert len(got) == 3 and all(len(r["magmom"]) == r["num_atoms"] for r in got)
+    assert_close(got, want)
+
+
 @pytest.mark.parametrize("fmt", ["json", "mlearn"])
 def test_predict_matches_jax(tmp_path, monkeypatch, capsys, fmt):
     """Three structures in batches of two (json), or the mlearn fixture."""

@@ -26,6 +26,7 @@ from torch_m3gnet_tpu.ops.pallas_factorized_stage import r1_gather_xla
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r2_gather as jr2
 from torch_m3gnet_tpu.ops.pallas_factorized_stage import r2_gather_xla
 from torch_m3gnet_tpu_torch.ops import factorized_stage as fs
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
 from torch_m3gnet_tpu_torch.utils import profiling
 
 L_MAX, N_MAX = 3, 3
@@ -56,21 +57,28 @@ def _t(*xs):
     return [torch.as_tensor(x) for x in xs]
 
 
+def _off(src, n):
+    """The run offsets of the sorted ``src`` over ``n`` nodes, as the batch
+    carries them (``edge_src_offsets``)."""
+    return sorted_segment_offsets(torch.as_tensor(src), n)
+
+
 def test_forward_matches_pallas(interpret):
     """Each op (Function and plain version) equals the Pallas kernel; f32
     sums of a few hundred terms in another order: atol 2e-5, as
     test_pallas_factorized.py holds the kernels against their XLA twins."""
     sh, gm, a, src, n, e = _data()
     tsh, tgm, ta, tsrc = _t(sh, gm, a, src)
+    off = _off(src, n)
     cases = [
         (jq(*map(jnp.asarray, (sh, gm, src)), n, L_MAX, N_MAX),
-         fs.q_scatter(tsh, tgm, tsrc, n, L_MAX, N_MAX),
+         fs.q_scatter(tsh, tgm, tsrc, off, n, L_MAX, N_MAX),
          fs.q_scatter_plain(tsh, tgm, tsrc, n, L_MAX, N_MAX), (MN, n)),
         (jr1(*map(jnp.asarray, (a, sh, src)), e, L_MAX, N_MAX),
-         fs.r1_gather(ta, tsh, tsrc, L_MAX, N_MAX),
+         fs.r1_gather(ta, tsh, tsrc, off, L_MAX, N_MAX),
          fs.r1_gather_plain(ta, tsh, tsrc, L_MAX, N_MAX), (LN, e)),
         (jr2(*map(jnp.asarray, (a, gm, src)), e, L_MAX, N_MAX),
-         fs.r2_gather(ta, tgm, tsrc, L_MAX, N_MAX),
+         fs.r2_gather(ta, tgm, tsrc, off, L_MAX, N_MAX),
          fs.r2_gather_plain(ta, tgm, tsrc, L_MAX, N_MAX), (M, e)),
     ]
     for want, got, plain, shape in cases:
@@ -85,6 +93,13 @@ def test_forward_matches_pallas(interpret):
 def _stage(q, r1, src, n):
     """s, g -> R1(Q(s, g), s): the factorized stage's projection."""
     return lambda s, g: r1(q(s, g, src, n, L_MAX, N_MAX), s, src, L_MAX, N_MAX)
+
+
+def _port_stage(src, n):
+    """:func:`_stage` of the port's Functions, with the offsets of ``src``."""
+    off = _off(src, n)
+    return _stage(lambda s, g, i, n_, l, nm: fs.q_scatter(s, g, i, off, n_, l, nm),
+                  lambda a_, s_, i, l, nm: fs.r1_gather(a_, s_, i, off, l, nm), src, n)
 
 
 def _f64_failure_record(request, got, want, tensors, port_terms, jax_terms, again) -> str:
@@ -147,7 +162,7 @@ def test_stage_vjp_matches_jax_grad(interpret, request):
 
     # float64: the port's Functions against the XLA twins at x64
     tsh, tgm = (torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (sh, gm))
-    stage = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)
+    stage = _port_stage(tsrc, n)
     p64 = stage(tsh, tgm)
     terms = torch.sin(p64 - tgm)
     val = terms.sum()
@@ -162,7 +177,7 @@ def test_stage_vjp_matches_jax_grad(interpret, request):
         jax_terms = np.asarray(jnp.sin(jstage(*args) - args[1]))
     if float(val.detach()) != pytest.approx(want, rel=1e-12):
         with torch.no_grad():
-            a64 = fs.q_scatter(tsh, tgm, tsrc, n, L_MAX, N_MAX)
+            a64 = fs.q_scatter(tsh, tgm, tsrc, _off(src, n), n, L_MAX, N_MAX)
             again = torch.sin(stage(tsh, tgm) - tgm).numpy()
         pytest.fail(_f64_failure_record(
             request, float(val.detach()), want,
@@ -175,14 +190,14 @@ def test_stage_vjp_matches_jax_grad(interpret, request):
     # float32, element by element: the Function and the Pallas kernels
     cot = np.random.default_rng(7).standard_normal((LN, e)).astype(np.float32)
     tsh, tgm = (torch.tensor(x, requires_grad=True) for x in (sh, gm))
-    proj = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)(tsh, tgm)
+    proj = _port_stage(tsrc, n)(tsh, tgm)
     got = [proj.detach(), *torch.autograd.grad(proj, (tsh, tgm), torch.as_tensor(cot))]
     jproj, vjp = jax.vjp(_stage(jq, lambda a_, s_, src_, l, nm: jr1(a_, s_, src_, e, l, nm),
                                 jnp.asarray(src), n), jnp.asarray(sh), jnp.asarray(gm))
     want = [jproj, *vjp(jnp.asarray(cot))]
     abs_sh, abs_gm = (torch.tensor(np.abs(x), dtype=torch.float64, requires_grad=True)
                       for x in (sh, gm))
-    abs_proj = _stage(fs.q_scatter, fs.r1_gather, tsrc, n)(abs_sh, abs_gm)
+    abs_proj = _port_stage(tsrc, n)(abs_sh, abs_gm)
     bound = [abs_proj.detach(), *torch.autograd.grad(
         abs_proj, (abs_sh, abs_gm), torch.as_tensor(np.abs(cot), dtype=torch.float64))]
     k = 2 * (int(np.bincount(src).max()) + L_MAX * L_MAX) + 2
@@ -206,7 +221,7 @@ def test_q_scatter_sorted_index_cases(case, sizes):
     sh, gm, src, n = chip_smoke.q_case_inputs(case, l_max, n_max)
     want = np.asarray(q_scatter_xla(*map(jnp.asarray, (sh, gm, src)), n, l_max, n_max))
     tsh, tgm, tsrc = _t(sh, gm, src)
-    got = fs.q_scatter(tsh, tgm, tsrc, n, l_max, n_max)
+    got = fs.q_scatter(tsh, tgm, tsrc, _off(src, n), n, l_max, n_max)
     plain = fs.q_scatter_plain(tsh, tgm, tsrc, n, l_max, n_max)
     for x in (got, plain):
         assert tuple(x.shape) == (l_max * l_max * n_max, n) and x.dtype == torch.float32
@@ -231,7 +246,8 @@ def test_r_gather_sorted_index_cases(op, case, sizes):
     ta, tx, tsrc = _t(a, x, src)
     plain = getattr(fs, f"{op}_plain")
     rows = l_max * n_max if op == "r1_gather" else l_max * l_max
-    for got in (getattr(fs, op)(ta, tx, tsrc, l_max, n_max), plain(ta, tx, tsrc, l_max, n_max)):
+    got = getattr(fs, op)(ta, tx, tsrc, _off(src, n), l_max, n_max)
+    for got in (got, plain(ta, tx, tsrc, l_max, n_max)):
         assert tuple(got.shape) == (rows, src.shape[0]) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
@@ -243,7 +259,7 @@ def test_functions_close_under_differentiation(op):
     differentiable, as training's gradient of a gradient needs."""
     l_max, n_max = 2, 2
     sh, gm, a, src, n, e = _data(e=14, n=5, seed=4, dtype=np.float64, l_max=l_max, n_max=n_max)
-    tsrc = torch.as_tensor(src)
+    tsrc, off = torch.as_tensor(src), _off(src, n)
     x, y = {
         "q_scatter": (sh, gm),
         "r1_gather": (a, sh),
@@ -251,9 +267,9 @@ def test_functions_close_under_differentiation(op):
     }[op]
     x, y = (torch.tensor(v, requires_grad=True) for v in (x, y))
     if op == "q_scatter":
-        fn = lambda s, g: fs.q_scatter(s, g, tsrc, n, l_max, n_max)  # noqa: E731
+        fn = lambda s, g: fs.q_scatter(s, g, tsrc, off, n, l_max, n_max)  # noqa: E731
     else:
-        fn = lambda p, q: getattr(fs, op)(p, q, tsrc, l_max, n_max)  # noqa: E731
+        fn = lambda p, q: getattr(fs, op)(p, q, tsrc, off, l_max, n_max)  # noqa: E731
     assert torch.autograd.gradcheck(fn, (x, y))
     assert torch.autograd.gradgradcheck(fn, (x, y))
 
@@ -261,21 +277,25 @@ def test_functions_close_under_differentiation(op):
 def test_wrappers_reject_wrong_shapes():
     sh, gm, a, src, n, e = _data(e=20, n=4)
     tsh, tgm, ta, tsrc = _t(sh, gm, a, src)
+    off = _off(src, n)
     with pytest.raises(ValueError, match="gm has shape"):
-        fs.q_scatter(tsh, tgm[:, :-1], tsrc, n, L_MAX, N_MAX)
+        fs.q_scatter(tsh, tgm[:, :-1], tsrc, off, n, L_MAX, N_MAX)
     with pytest.raises(ValueError, match="A has shape"):
-        fs.r1_gather(ta[:-1], tsh, tsrc, L_MAX, N_MAX)
+        fs.r1_gather(ta[:-1], tsh, tsrc, off, L_MAX, N_MAX)
     with pytest.raises(ValueError, match="operand has shape"):
-        fs.r2_gather(ta, tsh[:, :3], tsrc, L_MAX, N_MAX)
+        fs.r2_gather(ta, tsh[:, :3], tsrc, off, L_MAX, N_MAX)
     with pytest.raises(ValueError, match="src must be 1-D"):
-        fs.r2_gather(ta, tgm, tsrc[None], L_MAX, N_MAX)
+        fs.r2_gather(ta, tgm, tsrc[None], off, L_MAX, N_MAX)
+    with pytest.raises(ValueError, match="offsets has shape"):
+        fs.r1_gather(ta, tsh, tsrc, off[:-1], L_MAX, N_MAX)
 
 
 def test_cpu_path_launches_no_kernel():
     profiling.reset_counts("launch.")
     sh, gm, a, src, n, e = _data(e=50, n=6)
     tsh, tgm, tsrc = _t(sh, gm, src)
-    fs.r1_gather(fs.q_scatter(tsh, tgm, tsrc, n, L_MAX, N_MAX), tsh, tsrc, L_MAX, N_MAX)
+    off = _off(src, n)
+    fs.r1_gather(fs.q_scatter(tsh, tgm, tsrc, off, n, L_MAX, N_MAX), tsh, tsrc, off, L_MAX, N_MAX)
     assert not [k for k in profiling.counts() if k.startswith("launch.")]
 
 

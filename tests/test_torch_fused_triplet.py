@@ -25,6 +25,7 @@ from torch_m3gnet_tpu.ops.pallas_fused_triplet import backward_pair as jpair
 from torch_m3gnet_tpu.ops.pallas_fused_triplet import fused_triplet_gate_sum as jfused
 from torch_m3gnet_tpu.ops.pallas_fused_triplet import reference_triplet_gate_sum
 from torch_m3gnet_tpu_torch.ops import fused_triplet as ft
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets
 from torch_m3gnet_tpu_torch.utils import profiling
 
 # Pallas interpret mode contracts one-hot matrices in f32 on the CPU; the
@@ -87,6 +88,12 @@ def _t(*xs, grad=False):
     return [torch.tensor(x, requires_grad=grad) for x in xs]
 
 
+def _index(e1, e2, num_edges):
+    """(e1 offsets, e2 order): the batch's index of the two, as
+    ``data.to_torch`` builds it."""
+    return sorted_segment_offsets(e1, num_edges), ft.triplet_e2_order(e2, num_edges)
+
+
 @pytest.mark.parametrize("case", ["real", "synthetic", "padding-tail"])
 def test_forward_and_vjp_match_pallas(interpret, case):
     """The forward (Function and plain version) against the Pallas kernel
@@ -99,7 +106,7 @@ def test_forward_and_vjp_match_pallas(interpret, case):
     ref = np.asarray(reference_triplet_gate_sum(*jargs, e))
     tb, tg = _t(basis, gate, grad=True)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, ft.triplet_e2_order(te2, e))
+    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, *_index(te1, te2, e))
     plain = ft.fused_triplet_gate_sum_plain(tb, tg, te1, te2, e)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     for x in (got, plain):
@@ -130,7 +137,7 @@ def test_forward_sorted_index_cases(case, ln):
     basis, gate, e1, e2, e = chip_smoke.triplet_case_inputs(case, ln)
     want = np.asarray(reference_triplet_gate_sum(*map(jnp.asarray, (basis, gate, e1, e2)), e))
     tb, tg, te1, te2 = _t(basis, gate, e1, e2)
-    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, ft.triplet_e2_order(te2, e))
+    got = ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, *_index(te1, te2, e))
     plain = ft.fused_triplet_gate_sum_plain(tb, tg, te1, te2, e)
     for x in (got, plain):
         assert tuple(x.shape) == (ln, e) and x.dtype == torch.float32
@@ -163,8 +170,8 @@ def test_backward_pair_matches_pallas(interpret, case, ln):
     want = jpair(*map(jnp.asarray, (basis, gate, g, e1, e2)), e)
     tb, tg, tgg = _t(basis, gate, g)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    order = ft.triplet_e2_order(te2, e)
-    got = ft.backward_pair(tb, tg, tgg, te1, te2, e, order)
+    off1, order = _index(te1, te2, e)
+    got = ft.backward_pair(tb, tg, tgg, te1, te2, e, off1, order)
     plain = ft.backward_pair_plain(tb, tg, tgg, te1, te2, e)
     for x, p, y in zip(got, plain, want):
         assert x.dtype == torch.float32 and tuple(x.shape) == y.shape
@@ -186,8 +193,8 @@ def test_backward_pair_sorted_index_cases(case, ln):
     basis, gate, e1, e2, e = chip_smoke.triplet_case_inputs(case, ln)
     g = chip_smoke.dyadic(np.random.default_rng(60 + ln), gate.shape)
     tb, tg, tgg, te1, te2 = _t(basis, gate, g, e1, e2)
-    order = ft.triplet_e2_order(te2, e)
-    d_basis, d_gate = ft.backward_pair(tb, tg, tgg, te1, te2, e, order)
+    off1, order = _index(te1, te2, e)
+    d_basis, d_gate = ft.backward_pair(tb, tg, tgg, te1, te2, e, off1, order)
     want_b, want_g = ft.backward_pair_plain(tb, tg, tgg, te1, te2, e)
     assert tuple(d_basis.shape) == (ln, e1.shape[0]) and tuple(d_gate.shape) == (ln, e)
     assert torch.equal(d_basis, want_b) and torch.equal(d_gate, want_g)
@@ -216,8 +223,7 @@ def test_grad_of_grad_matches_jax(interpret):
     want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(basis), jnp.asarray(gate))
     tb, tg = _t(basis, gate, grad=True)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    order = ft.triplet_e2_order(te2, e)
-    out = torch.sin(ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, order)).sum()
+    out = torch.sin(ft.fused_triplet_gate_sum(tb, tg, te1, te2, e, *_index(te1, te2, e))).sum()
     db, dg = torch.autograd.grad(out, (tb, tg), create_graph=True)
     loss = (db * db * torch.as_tensor(wb)).sum() + (dg * torch.as_tensor(wg)).sum()
     got = torch.autograd.grad(loss, (tb, tg))
@@ -229,18 +235,19 @@ def test_grad_of_grad_matches_jax(interpret):
 def test_functions_close_under_differentiation(op):
     """gradcheck and gradgradcheck at f64: each Function's backward is built
     from the two Functions, so it is itself differentiable, as training's
-    gradient of a gradient needs; every backward carries the e2 order on."""
+    gradient of a gradient needs; every backward carries the e1 offsets and
+    the e2 order on."""
     e1 = torch.tensor([0, 0, 0, 2, 2, 3, 5, 5], dtype=torch.int32)  # sorted; 1 and 4 own none
     e2 = torch.tensor([2, 3, 5, 0, 3, 5, 0, 2], dtype=torch.int32)
-    order = ft.triplet_e2_order(e2, 6)
+    off1, order = _index(e1, e2, 6)
     rng = np.random.default_rng(4)
     basis, gate, g = (torch.tensor(rng.standard_normal(s), requires_grad=True)
                       for s in ((3, 8), (3, 6), (3, 6)))
     if op == "fused_triplet_gate_sum":
-        fn = lambda b, G: ft.fused_triplet_gate_sum(b, G, e1, e2, 6, order)  # noqa: E731
+        fn = lambda b, G: ft.fused_triplet_gate_sum(b, G, e1, e2, 6, off1, order)  # noqa: E731
         args = (basis, gate)
     else:
-        fn = lambda b, G, c: ft.backward_pair(b, G, c, e1, e2, 6, order)  # noqa: E731
+        fn = lambda b, G, c: ft.backward_pair(b, G, c, e1, e2, 6, off1, order)  # noqa: E731
         args = (basis, gate, g)
     assert torch.autograd.gradcheck(fn, args)
     assert torch.autograd.gradgradcheck(fn, args)
@@ -251,19 +258,21 @@ def test_wrappers_reject_wrong_shapes_and_launch_nothing_on_cpu():
     e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
     e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
     b, gate = torch.ones(2, 3), torch.ones(2, 3)
-    order, offsets = ft.triplet_e2_order(e2, 3)
+    off1, (order, offsets) = _index(e1, e2, 3)
     with pytest.raises(ValueError, match="gate_e has shape"):
-        ft.fused_triplet_gate_sum(b, gate[:, :2], e1, e2, 3, (order, offsets))
+        ft.fused_triplet_gate_sum(b, gate[:, :2], e1, e2, 3, off1, (order, offsets))
     with pytest.raises(ValueError, match="basis has shape"):
-        ft.backward_pair(b[:, :2], gate, gate, e1, e2, 3, (order, offsets))
+        ft.backward_pair(b[:, :2], gate, gate, e1, e2, 3, off1, (order, offsets))
     with pytest.raises(ValueError, match="e1 and e2"):
-        ft.fused_triplet_gate_sum(b, gate, e1, e2[:2], 3, (order, offsets))
-    with pytest.raises(ValueError, match="the e2 order must be"):
-        ft.backward_pair(b, gate, gate, e1, e2, 3, (order[:2], offsets))
-    with pytest.raises(ValueError, match="the e2 order must be"):
-        ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets[:3]))
-    out = ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, (order, offsets))
-    ft.backward_pair(b, gate, out, e1, e2, 3, (order, offsets))
+        ft.fused_triplet_gate_sum(b, gate, e1, e2[:2], 3, off1, (order, offsets))
+    with pytest.raises(ValueError, match="e2 order has shape"):
+        ft.backward_pair(b, gate, gate, e1, e2, 3, off1, (order[:2], offsets))
+    with pytest.raises(ValueError, match="e2 offsets has shape"):
+        ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, off1, (order, offsets[:3]))
+    with pytest.raises(ValueError, match="e1 offsets has shape"):
+        ft.backward_pair(b, gate, gate, e1, e2, 3, off1[:3], (order, offsets))
+    out = ft.fused_triplet_gate_sum(b, gate, e1, e2, 3, off1, (order, offsets))
+    ft.backward_pair(b, gate, out, e1, e2, 3, off1, (order, offsets))
     assert not [k for k in profiling.counts() if k.startswith("launch.")]
 
 
@@ -296,13 +305,13 @@ def test_member_axis_matches_jax_vmap(interpret, op, case, in_dims):
     floats = [x if d == 0 else x[0] for x, d in zip(floats, in_dims)]
     je1, je2 = jnp.asarray(e1), jnp.asarray(e2)
     te1, te2 = torch.as_tensor(e1), torch.as_tensor(e2)
-    order = ft.triplet_e2_order(te2, e)
+    off1, order = _index(te1, te2, e)
     if op == "fused_triplet_gate_sum":
         jfn = lambda b, q: jfused(b, q, je1, je2, e)  # noqa: E731
-        tfn = lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, order)  # noqa: E731
+        tfn = lambda b, q: ft.fused_triplet_gate_sum(b, q, te1, te2, e, off1, order)  # noqa: E731
     else:
         jfn = lambda b, q, c: jpair(b, q, c, je1, je2, e)  # noqa: E731
-        tfn = lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, order)  # noqa: E731
+        tfn = lambda b, q, c: ft.backward_pair(b, q, c, te1, te2, e, off1, order)  # noqa: E731
     want = jax.vmap(jfn, in_axes=in_dims)(*map(jnp.asarray, floats))
     profiling.reset_counts("launch.")
     got = torch.func.vmap(tfn, in_dims=in_dims)(*map(torch.as_tensor, floats))
@@ -320,24 +329,24 @@ def test_member_axis_mismatch_raises_and_launches_nothing_on_cpu():
     profiling.reset_counts("launch.")
     e1 = torch.tensor([0, 1, 1], dtype=torch.int32)
     e2 = torch.tensor([1, 0, 2], dtype=torch.int32)
-    order = ft.triplet_e2_order(e2, 3)
+    off1, order = _index(e1, e2, 3)
     b, gate = torch.ones(2, 3), torch.ones(2, 3)
     b3, gate3, gate4 = torch.ones(3, 2, 3), torch.ones(3, 2, 3), torch.ones(4, 2, 3)
     with pytest.raises(ValueError, match="different member counts"):
-        ft.fused_triplet_gate_sum(b3, gate4, e1, e2, 3, order)
+        ft.fused_triplet_gate_sum(b3, gate4, e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match="different member counts"):
-        ft.backward_pair(b, gate3, gate4, e1, e2, 3, order)
+        ft.backward_pair(b, gate3, gate4, e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match="different member counts"):
-        ft.backward_pair(b3, gate, gate4, e1, e2, 3, order)
+        ft.backward_pair(b3, gate, gate4, e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match="gate_e has shape"):
-        ft.fused_triplet_gate_sum(b, torch.ones(3, 2, 4), e1, e2, 3, order)
+        ft.fused_triplet_gate_sum(b, torch.ones(3, 2, 4), e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match="basis has shape"):
-        ft.backward_pair(torch.ones(3, 2, 2), gate3, gate3, e1, e2, 3, order)
+        ft.backward_pair(torch.ones(3, 2, 2), gate3, gate3, e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match="g has shape"):
-        ft.backward_pair(b3, gate3, torch.ones(3, 1, 3), e1, e2, 3, order)
+        ft.backward_pair(b3, gate3, torch.ones(3, 1, 3), e1, e2, 3, off1, order)
     with pytest.raises(ValueError, match=r"must be \(rows, cols\) or \(K, rows, cols\)"):
-        ft.fused_triplet_gate_sum(torch.ones(1, 3, 2, 3), gate3, e1, e2, 3, order)
-    out = ft.fused_triplet_gate_sum(b, gate3, e1, e2, 3, order)
-    d_basis, d_gate = ft.backward_pair(b, gate3, out, e1, e2, 3, order)
+        ft.fused_triplet_gate_sum(torch.ones(1, 3, 2, 3), gate3, e1, e2, 3, off1, order)
+    out = ft.fused_triplet_gate_sum(b, gate3, e1, e2, 3, off1, order)
+    d_basis, d_gate = ft.backward_pair(b, gate3, out, e1, e2, 3, off1, order)
     assert out.shape == (3, 2, 3) and d_basis.shape == (3, 2, 3) and d_gate.shape == (3, 2, 3)
     assert not [k for k in profiling.counts() if k.startswith("launch.")]

@@ -42,6 +42,8 @@ NSEG = 7
 # unsorted ids over 6 edges, with repeats; edge 2 and 5 are hit by none
 IDX = torch.tensor([3, 0, 3, 1, 4, 4, 0, 3], dtype=torch.int32)
 NIDX = 6
+# sorted triplet_e1 over those 6 edges
+E1 = torch.tensor([0, 0, 1, 3, 3, 3, 3, 5], dtype=torch.int32)
 # the factorized stage at l_max = n_max = 2: M = 4, LN = 4, MN = 8
 L, NM = 2, 2
 
@@ -50,7 +52,7 @@ def _specs():
     """name -> (float operand shapes, function of the float operands)."""
     off = ss.sorted_segment_offsets(SEG, NSEG)
     owners = ft.triplet_e2_order(IDX, NIDX)
-    e1 = torch.tensor([0, 0, 1, 3, 3, 3, 3, 5], dtype=torch.int32)  # sorted, over 6 edges
+    e1, e1_off = E1, ss.sorted_segment_offsets(E1, NIDX)
     e2_order = ft.triplet_e2_order(IDX, NIDX)
     m, ln, mn, e = L * L, L * NM, L * L * NM, SEG.shape[0]
     return {
@@ -59,15 +61,15 @@ def _specs():
         "windowed_take": ([(3, NIDX)], lambda d: wt.windowed_take_fm(d, IDX, owners)),
         "windowed_scatter": ([(3, 8)], lambda v: wt.windowed_scatter_fm(v, IDX, NIDX, owners)),
         "q_scatter": ([(m, e), (ln, e)],
-                      lambda sh, gm: fs.q_scatter(sh, gm, SEG, NSEG, L, NM)),
-        "r1_gather": ([(mn, NSEG), (m, e)], lambda a, sh: fs.r1_gather(a, sh, SEG, L, NM)),
-        "r2_gather": ([(mn, NSEG), (ln, e)], lambda a, gm: fs.r2_gather(a, gm, SEG, L, NM)),
+                      lambda sh, gm: fs.q_scatter(sh, gm, SEG, off, NSEG, L, NM)),
+        "r1_gather": ([(mn, NSEG), (m, e)], lambda a, sh: fs.r1_gather(a, sh, SEG, off, L, NM)),
+        "r2_gather": ([(mn, NSEG), (ln, e)], lambda a, gm: fs.r2_gather(a, gm, SEG, off, L, NM)),
         "fused_triplet_gate_sum": (
             [(ln, 8), (ln, NIDX)],
-            lambda b, g: ft.fused_triplet_gate_sum(b, g, e1, IDX, NIDX, e2_order)),
+            lambda b, g: ft.fused_triplet_gate_sum(b, g, e1, IDX, NIDX, e1_off, e2_order)),
         "backward_pair": (
             [(ln, 8), (ln, NIDX), (ln, NIDX)],
-            lambda b, g, c: ft.backward_pair(b, g, c, e1, IDX, NIDX, e2_order)),
+            lambda b, g, c: ft.backward_pair(b, g, c, e1, IDX, NIDX, e1_off, e2_order)),
     }
 
 
@@ -135,26 +137,60 @@ def test_batched_index_raises(name):
     index = SEG if name in ("sorted_segment_sum", "sorted_take", "q_scatter", "r1_gather",
                             "r2_gather") else IDX
     batched_index = index.expand(K, -1)
+    off, e1_off = ss.sorted_segment_offsets(SEG, NSEG), ss.sorted_segment_offsets(E1, NIDX)
+    e2_order = ft.triplet_e2_order(IDX, NIDX)
 
     def with_index(idx, *xs):
         spec = {
-            "sorted_segment_sum": lambda d: ss.sorted_segment_sum_fm(d, idx, NSEG),
-            "sorted_take": lambda x: ss.sorted_take_fm(x, idx),
-            "windowed_take": lambda d: wt.windowed_take_fm(d, idx),
+            "sorted_segment_sum": lambda d: ss.sorted_segment_sum_fm(d, idx, NSEG, off),
+            "sorted_take": lambda x: ss.sorted_take_fm(x, idx, off),
+            "windowed_take": lambda d: wt.windowed_take_fm(d, idx, e2_order),
             "windowed_scatter": lambda v: wt.windowed_scatter_fm(
                 v, idx, NIDX, (None, torch.zeros(NIDX + 1, dtype=torch.int32))),
-            "q_scatter": lambda sh, gm: fs.q_scatter(sh, gm, idx, NSEG, L, NM),
-            "r1_gather": lambda a, sh: fs.r1_gather(a, sh, idx, L, NM),
-            "r2_gather": lambda a, gm: fs.r2_gather(a, gm, idx, L, NM),
+            "q_scatter": lambda sh, gm: fs.q_scatter(sh, gm, idx, off, NSEG, L, NM),
+            "r1_gather": lambda a, sh: fs.r1_gather(a, sh, idx, off, L, NM),
+            "r2_gather": lambda a, gm: fs.r2_gather(a, gm, idx, off, L, NM),
             "fused_triplet_gate_sum": lambda b, g: ft.fused_triplet_gate_sum(
-                b, g, idx, IDX, NIDX, ft.triplet_e2_order(IDX, NIDX)),
+                b, g, idx, IDX, NIDX, e1_off, e2_order),
             "backward_pair": lambda b, g, c: ft.backward_pair(
-                b, g, c, idx, IDX, NIDX, ft.triplet_e2_order(IDX, NIDX)),
+                b, g, c, idx, IDX, NIDX, e1_off, e2_order),
         }[name]
         return spec(*xs)
 
     with pytest.raises(ValueError, match="must be shared"):
         torch.func.vmap(with_index, in_dims=(0,) + (None,) * len(args))(batched_index, *args)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_batched_offsets_raise(name):
+    """The run offsets are part of the shared index: each op refuses them
+    batched by vmap, as it refuses batched ids (the offsets of the sorted
+    ids, of the e2 order for the windowed ops, of e1 for the fused pair)."""
+    args = _inputs(name)
+    seg_off, e1_off = ss.sorted_segment_offsets(SEG, NSEG), ss.sorted_segment_offsets(E1, NIDX)
+    order, e2_off = ft.triplet_e2_order(IDX, NIDX)
+    batched = {"windowed_take": e2_off, "windowed_scatter": e2_off,
+               "fused_triplet_gate_sum": e1_off, "backward_pair": e1_off}.get(name, seg_off)
+
+    def with_offsets(off, *xs):
+        spec = {
+            "sorted_segment_sum": lambda d: ss.sorted_segment_sum_fm(d, SEG, NSEG, off),
+            "sorted_take": lambda x: ss.sorted_take_fm(x, SEG, off),
+            "windowed_take": lambda d: wt.windowed_take_fm(d, IDX, (order, off)),
+            "windowed_scatter": lambda v: wt.windowed_scatter_fm(v, IDX, NIDX, (order, off)),
+            "q_scatter": lambda sh, gm: fs.q_scatter(sh, gm, SEG, off, NSEG, L, NM),
+            "r1_gather": lambda a, sh: fs.r1_gather(a, sh, SEG, off, L, NM),
+            "r2_gather": lambda a, gm: fs.r2_gather(a, gm, SEG, off, L, NM),
+            "fused_triplet_gate_sum": lambda b, g: ft.fused_triplet_gate_sum(
+                b, g, E1, IDX, NIDX, off, (order, e2_off)),
+            "backward_pair": lambda b, g, c: ft.backward_pair(
+                b, g, c, E1, IDX, NIDX, off, (order, e2_off)),
+        }[name]
+        return spec(*xs)
+
+    with pytest.raises(ValueError, match="offsets is batched under vmap"):
+        torch.func.vmap(with_offsets, in_dims=(0,) + (None,) * len(args))(
+            batched.expand(K, -1), *args)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -11,7 +11,9 @@ its tree first on ``sys.path``, so that it imports that tree's
 ``torch_m3gnet_tpu_torch`` (and builds that tree's kernels into that tree's
 ``_build/``), and takes the timing helpers of this tree's ``chip_smoke.py``.
 A turn builds the bench batch with its kernel index and, for each op
-(both, or those ``--ops`` names),
+(both, or those ``--ops`` names, called with the index that the tree's
+wrapper takes: the e1 offsets and the e2 order, or the e2 order alone in
+trees whose B4 ran its own offsets pass),
 
 - prints the registers, shared memory and spills ``ptxas`` gave each
   instantiation of the op's LN = 9 kernel in that tree's build;
@@ -33,6 +35,7 @@ and power limit. Exits non-zero without a GPU or if a check fails.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -74,16 +77,25 @@ def turn(tree: str, label: str, names: list[str]) -> None:
     ln, e = cfg.l_max * cfg.n_max, gbatch.num_edges
     basis, gate, g, _, _ = cs.triplet_inputs(gbatch, ln)
     e1, e2 = gbatch.triplet_e1, gbatch.triplet_e2
-    order = (gbatch.triplet_e2_order, gbatch.triplet_e2_offsets)
+    index = ((gbatch.triplet_e2_order, gbatch.triplet_e2_offsets),)  # the e2 order
+    if "e1_offsets" in inspect.signature(ft.fused_triplet_gate_sum).parameters:
+        index = (gbatch.triplet_e1_offsets, *index)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda").zero_()
     member = cs.member_specs(gbatch, cfg)
+    # the committee's calls with the tree's own signature
+    member["fused_triplet_gate_sum"] = (
+        lambda b, q: ft.fused_triplet_gate_sum(b, q, e1, e2, e, *index),
+        *member["fused_triplet_gate_sum"][1:])
+    member["backward_pair"] = (
+        lambda b, q, c: ft.backward_pair(b, q, c, e1, e2, e, *index),
+        *member["backward_pair"][1:])
     bw = cs.bandwidth(torch.cuda.get_device_name(0))
     ops = {
         "fused_triplet_gate_sum": (
-            lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, order),
+            lambda: ft.fused_triplet_gate_sum(basis, gate, e1, e2, e, *index),
             lambda: ft.fused_triplet_gate_sum_plain(basis, gate, e1, e2, e)),
         "backward_pair": (
-            lambda: ft.backward_pair(basis, gate, g, e1, e2, e, order),
+            lambda: ft.backward_pair(basis, gate, g, e1, e2, e, *index),
             lambda: ft.backward_pair_plain(basis, gate, g, e1, e2, e)),
     }
     with torch.no_grad():

@@ -16,7 +16,7 @@ wrapper takes them: the ``triplet_e1`` offsets, the e2 order) it
 - checks the result against the plain version (``chip_smoke.FWD_TOL``);
 - reads ``kernel_us``, the profiler's device time of the call's CUDA
   kernels (clean L2 flush, mean of 10 calls; ``parts_us`` splits it by
-  kernel: the parent's scatter is a memset and an atomic kernel), and the
+  kernel), and the
   CUDA-event times under the three L2 states (``ms`` clean, median of 30,
   ``cold_dirty_us``, ``warm_us``) of ``chip_smoke.l2_times``;
 - samples ``nvidia-smi``'s SM clock and power draw every 50 ms while it

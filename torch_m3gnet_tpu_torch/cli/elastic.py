@@ -70,7 +70,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if isinstance(d, list):
         d = d[0]
     s = structure_from_dict(d)
-    batch = pack_structures([s], config.cutoff, config.threebody_cutoff)
+    batch = pack_structures([s], config.cutoff, config.threebody_cutoff,
+                            bond_pairs="edge_reverse" in pot.model.batch_index)
 
     c = elastic_tensor(pot, batch, gpa=True)
     out = {

@@ -5,7 +5,9 @@ evaluated by the port's potential. Input: a JSON list of structures, each
 {"lattice": 3x3, "frac_coords": Nx3, "atomic_numbers": [...]} (or
 "cart_coords"), or an mlearn-format JSON file (``--format mlearn``). Output:
 per-structure {energy, energy_per_atom, forces, stress_voigt, num_atoms} JSON
-on stdout.
+on stdout, with the per-atom ``magmom`` (Bohr magnetons) for a model that
+predicts them (CHGNet). The batches carry what the model reads from pack
+time (CHGNet's bond pairs).
 
 Usage:
     python -m torch_m3gnet_tpu_torch.cli.predict --structures cells.json \\
@@ -34,13 +36,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
     config, pot = load_potential(args)
     structures = load_structures(args.structures, args.format)
+    bond_pairs = "edge_reverse" in pot.model.batch_index
 
     results = []
     for lo in range(0, len(structures), args.batch_size):
         chunk = structures[lo : lo + args.batch_size]
-        batch = pack_structures(chunk, config.cutoff, config.threebody_cutoff)
+        batch = pack_structures(chunk, config.cutoff, config.threebody_cutoff,
+                                bond_pairs=bond_pairs)
         with torch.no_grad():
             out = pot(batch)
+        magmom = None if out.magmom is None else out.magmom.detach().cpu().double().numpy()
         energy, per_atom, forces, stress = (
             getattr(out, k).detach().cpu().double().numpy()
             for k in ("energy", "energy_per_atom", "forces", "stress"))
@@ -52,6 +57,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 "forces": forces[sel].tolist(),
                 "stress_voigt": stress[gi].tolist(),
                 "num_atoms": len(s),
+                **({} if magmom is None else {"magmom": magmom[sel].tolist()}),
             })
     print(json.dumps(results))
 

@@ -32,11 +32,12 @@
 //     process. Tiles of four edges a thread with 16-byte accesses and the
 //     node window A[:, lo..hi] staged in shared memory once per block (or
 //     per warp) hold a quarter of the chains and add a copy and a barrier
-//     to each: up to 2 us slower. tools/r_gather_designs.py builds those
-//     designs and times them beside this kernel.
-//   - q_scatter: the sorted-owner sum. The offsets pass of
-//     segment_offsets.cuh writes each node's edge range [off[i], off[i+1])
-//     once, so nothing searches src. One block owns kQNodes = 4
+//     to each: up to 2 us slower (PERF.md and CHANGES.md keep the
+//     numbers).
+//   - q_scatter: the sorted-owner sum. It takes each node's edge range
+//     [off[i], off[i+1]) from the batch's offsets of src (built once per
+//     batch by data.to_torch), so nothing searches src and the kernel does
+//     not read it. One block owns kQNodes = 4
 //     consecutive nodes (896 blocks of ~165 edges at the bench point, so
 //     each block's chain of dependent steps is short). Their edges are one
 //     contiguous span, which the block copies to shared memory in chunks
@@ -64,14 +65,14 @@
 // gridDim.y limit, launch in slices of 65,535); each float operand comes with a
 // member stride in floats, 0 where the members share it (the geometry sh
 // in the committee's forward, the saved primals of a batched Hessian), and
-// the output is K contiguous (rows, cols) slabs. The index src is one for
-// all members, so q_scatter's offsets pass runs once. Each member is
+// the output is K contiguous (rows, cols) slabs. The index src and its
+// offsets are one for all members. Each member is
 // summed in the order of a K = 1 call, so the K slabs equal K single
 // calls bit for bit; K = 1 with both strides 0 is the plain call.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
-// given stream of the current device, allocates nothing (q_scatter takes an
-// (N + 1,) int32 scratch for the offsets), and returns cudaGetLastError()
+// given stream of the current device, allocates nothing, and returns
+// cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported (l_max, n_max) or a member
 // count below 1).
 
@@ -79,7 +80,7 @@
 
 #include <cstdint>
 
-#include "segment_offsets.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -99,7 +100,7 @@ __device__ __forceinline__ const float* staged_row(const float* sh, const float*
   return row < m ? sh + (size_t)row * num_edges : gm + (size_t)(row - m) * num_edges;
 }
 
-// q_scatter after the offsets pass. Block b owns nodes [n0, n0 + kQNodes)
+// q_scatter by src's offsets. Block b owns nodes [n0, n0 + kQNodes)
 // with n0 counted from the last node down, so that the block of the padded
 // tail (the last node's long run) starts first and overlaps the rest. Shared
 // memory holds a chunk of the block's edge span as M + LN rows (sh rows,
@@ -267,16 +268,15 @@ r2_gather_kernel(const float* __restrict__ a, const float* __restrict__ gm,
 }
 
 template <int L, int NM>
-cudaError_t launch_q(const float* sh, const float* gm, const int* src, int* offsets,
-                     float* out, int num_edges, int num_nodes, int members,
-                     long long sh_stride, long long gm_stride, cudaStream_t stream) {
+cudaError_t launch_q(const float* sh, const float* gm, const int* offsets, float* out,
+                     int num_edges, int num_nodes, int members, long long sh_stride,
+                     long long gm_stride, cudaStream_t stream) {
   constexpr int kSmem = (L * L + L * NM) * kQStride * (int)sizeof(float);
   if (kSmem > 48 * 1024) {  // (l_max, n_max) = (4, 4) stages 66 KB
     const cudaError_t err = cudaFuncSetAttribute(
         q_scatter_kernel<L, NM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
   }
-  launch_segment_offsets(src, offsets, num_edges, num_nodes, stream);
   // Every member's rows stay 16-byte aligned: the strides are multiples of 4.
   const bool vec = num_edges % 4 == 0 && reinterpret_cast<uintptr_t>(sh) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(gm) % 16 == 0 && sh_stride % 4 == 0 &&
@@ -323,11 +323,11 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
   X(1, 1) X(1, 2) X(1, 3) X(1, 4) X(2, 1) X(2, 2) X(2, 3) X(2, 4) \
   X(3, 1) X(3, 2) X(3, 3) X(3, 4) X(4, 1) X(4, 2) X(4, 3) X(4, 4)
 
-#define M3G_CASE_q(L_, N_)                                                          \
-  case L_ * 8 + N_: {                                                               \
-    const cudaError_t err = launch_q<L_, N_>(x, y, idx, off, o, num_edges, num_nodes, \
-                                             members, x_stride, y_stride, s);            \
-    if (err != cudaSuccess) return (int)err;                                        \
+#define M3G_CASE_q(L_, N_)                                                               \
+  case L_ * 8 + N_: {                                                                    \
+    const cudaError_t err =                                                              \
+        launch_q<L_, N_>(x, y, idx, o, num_edges, num_nodes, members, x_stride, y_stride, s); \
+    if (err != cudaSuccess) return (int)err;                                             \
   } break;
 #define M3G_CASE_r1(L_, N_)                                                              \
   case L_ * 8 + N_:                                                                      \
@@ -341,14 +341,14 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
 #define M3G_MEMBERS_OK(K) ((K) >= 1)
 
 #define M3G_ENTRY(NAME, LAUNCH)                                                 \
-  extern "C" int NAME(const void* in0, const void* in1, const void* src,       \
+  extern "C" int NAME(const void* in0, const void* in1, const void* index,     \
                       void* out, int num_edges, int num_nodes, int l_max,       \
                       int n_max, int members, long long x_stride,               \
                       long long y_stride, void* stream) {                       \
     if (!M3G_MEMBERS_OK(members)) return (int)cudaErrorInvalidValue;            \
     const float* x = static_cast<const float*>(in0);                            \
     const float* y = static_cast<const float*>(in1);                            \
-    const int* idx = static_cast<const int*>(src);                              \
+    const int* idx = static_cast<const int*>(index);                            \
     float* o = static_cast<float*>(out);                                        \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                         \
     switch (l_max * 8 + n_max) {                                                \
@@ -359,30 +359,12 @@ void launch_r2(const float* a, const float* gm, const int* src, float* out,
     return (int)cudaGetLastError();                                             \
   }
 
-// q_scatter(sh, gm, src) -> A (members, MN, num_nodes); offsets is an
-// (num_nodes + 1,) int32 scratch; x_stride, y_stride: the member strides of
-// sh and gm in floats (0: shared).
-extern "C" int m3g_q_scatter(const void* sh, const void* gm, const void* src, void* offsets,
-                             void* out, int num_edges, int num_nodes, int l_max, int n_max,
-                             int members, long long x_stride, long long y_stride,
-                             void* stream) {
-  if (!M3G_MEMBERS_OK(members)) return (int)cudaErrorInvalidValue;
-  const float* x = static_cast<const float*>(sh);
-  const float* y = static_cast<const float*>(gm);
-  const int* idx = static_cast<const int*>(src);
-  int* off = static_cast<int*>(offsets);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (l_max * 8 + n_max) {
-    M3G_CASES(M3G_CASE_q)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
+// q_scatter(sh, gm, offsets) -> A (members, MN, num_nodes); in0 = sh, in1 =
+// gm, index = the (num_nodes + 1,) int32 offsets of the sorted edge
+// sources, with member strides x_stride, y_stride in floats (0: shared).
+M3G_ENTRY(m3g_q_scatter, q)
 // r1_gather(A, sh, src) -> out (members, LN, num_edges); in0 = A, in1 = sh,
-// with member strides x_stride, y_stride in floats (0: shared).
+// index = src, with member strides x_stride, y_stride in floats (0: shared).
 M3G_ENTRY(m3g_r1_gather, r1)
 // r2_gather(A, gm, src) -> out (members, M, num_edges); in0 = A, in1 = gm.
 M3G_ENTRY(m3g_r2_gather, r2)

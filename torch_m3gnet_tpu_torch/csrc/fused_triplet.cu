@@ -12,10 +12,12 @@
 // row-major, entity axis contiguous. e1 (T,) is int32, sorted ascending, in
 // [0, E); e2 (T,) is int32 in [0, E), unsorted. Padded triplets carry zero
 // basis, point e1 at the last (padded) edge, which therefore owns a long
-// run of them, and point e2 at edge 0. The backward also takes the e2
-// order of the batch (built once per batch, ops/fused_triplet.py
-// triplet_e2_order): order (T,) int32, the stable permutation that sorts
-// e2, and off2 (E + 1,) int32, edge e's run [off2[e], off2[e + 1]) of it.
+// run of them, and point e2 at edge 0. Both take the batch's index (built
+// once per batch by data.to_torch): the forward the run offsets of e1, off1
+// (E + 1,) int32, edge e's triplets [off1[e], off1[e + 1]); the backward
+// the e2 order (ops/fused_triplet.py triplet_e2_order): order (T,) int32,
+// the stable permutation that sorts e2, and off2 (E + 1,) int32, edge e's
+// run [off2[e], off2[e + 1]) of it.
 //
 // What bounds them: memory. The forward does 2*LN*T flops against
 // (LN*T + 2*T + 2*LN*E) * 4 bytes, the backward 3*LN*T flops against
@@ -30,9 +32,9 @@
 // window of columns (both edges of a triplet share a source node and edges
 // are sorted by source), so L1/L2 serve them.
 //   - forward: the sorted-owner sum of B8 with the gate product fused into
-//     the staging. The offsets pass of segment_offsets.cuh turns the sorted
-//     e1 into each edge's triplet range [off[e], off[e+1]), so nothing
-//     searches e1 and e1 is read by that pass only. One block owns
+//     the staging. Each edge's triplet range [off1[e], off1[e+1]) comes
+//     from the batch, so nothing searches e1 and the kernel does not read
+//     it. One block owns
 //     kFwdEdges = 256 consecutive edges, one thread each (576 blocks at the
 //     bench point: one wave). Their triplets are one contiguous span, which
 //     the block streams in chunks of kFwdStage / (LN + 1) triplets: e2 and
@@ -87,8 +89,8 @@
 // K members. Each float operand comes with a member stride in floats, 0
 // where the members share it (the basis in the committee's forward), and
 // every output is K contiguous slabs: out and d_gate (K, LN, E), d_basis
-// (K, LN, T). The index is one for all members: the forward's offsets pass
-// runs once, and every member's d_gate reads the batch's one e2 order.
+// (K, LN, T). The index is one for all members: every member's sum reads
+// the batch's one e1 offsets or e2 order.
 // The member is the fast part of blockIdx.x (block b is member b % K of
 // tile b / K), so that the K members of one tile run together: the
 // forward's padded-edge tile first for every member, the backward's d_gate
@@ -109,9 +111,8 @@
 // kept fewer of its gathers in flight.
 //
 // Interface: plain C, loaded with ctypes. Each entry point launches on the
-// given stream of the current device, allocates nothing (the forward takes
-// an (E + 1,) int32 scratch for the offsets, the backward the batch's e2
-// order), and returns cudaGetLastError()
+// given stream of the current device, allocates nothing, and returns
+// cudaGetLastError()
 // (cudaErrorInvalidValue for an unsupported LN or a member count below 1).
 
 #include <cuda_runtime.h>
@@ -119,7 +120,7 @@
 #include <climits>
 #include <cstdint>
 
-#include "segment_offsets.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -139,7 +140,7 @@ __device__ __forceinline__ T* opaque(T* p) {
   return p;
 }
 
-// The forward after the offsets pass. Tile b owns edges [e0, e0 + kFwdEdges)
+// The forward by the e1 offsets. Tile b owns edges [e0, e0 + kFwdEdges)
 // with e0 counted from the last edge down, so that the tile of the padded
 // edge (its long run) starts first and overlaps the rest. Shared memory
 // holds a chunk of the block's triplet span: e2 and the LN rows of basis,
@@ -365,10 +366,9 @@ int members_per_launch(int blocks) {
 }
 
 template <int LN>
-void launch_fwd(const float* basis, const float* gate, const int* e1, const int* e2, int* offsets,
+void launch_fwd(const float* basis, const float* gate, const int* offsets, const int* e2,
                 float* out, int num_edges, int num_trip, int members, long long basis_stride,
                 long long gate_stride, cudaStream_t stream) {
-  launch_segment_offsets(e1, offsets, num_trip, num_edges, stream);  // once for every member
   // Every member's basis rows stay 16-byte aligned: the stride is a
   // multiple of 4 (the gate is read a word at a time).
   const bool vec =
@@ -427,7 +427,7 @@ void launch_pair(const float* basis, const float* gate, const float* g, const in
   X(16)
 #define M3G_CASE_FWD(LN_)                                                                      \
   case LN_:                                                                                    \
-    launch_fwd<LN_>(b, gt, i1, i2, off, o, num_edges, num_trip, members, basis_stride,         \
+    launch_fwd<LN_>(b, gt, off, i2, o, num_edges, num_trip, members, basis_stride,             \
                     gate_stride, s);                                                           \
     break;
 #define M3G_CASE_PAIR(LN_)                                                                     \
@@ -436,21 +436,19 @@ void launch_pair(const float* basis, const float* gate, const float* g, const in
                      basis_stride, gate_stride, g_stride, s);                                  \
     break;
 
-// fused_triplet_gate_sum(basis (rows, T), gate (rows, E), e1, e2) -> out (rows,
-// E) for each of `members` members, each float operand at its member stride
-// in floats (0: shared), out (members, rows, E); offsets is an (E + 1,)
-// int32 scratch.
-extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, const void* e1,
-                                          const void* e2, void* offsets, void* out, int rows,
-                                          int num_edges, int num_trip, int members,
-                                          long long basis_stride, long long gate_stride,
-                                          void* stream) {
+// fused_triplet_gate_sum(basis (rows, T), gate (rows, E), off1, e2) -> out
+// (rows, E) for each of `members` members, each float operand at its
+// member stride in floats (0: shared), out (members, rows, E); off1 is the
+// (E + 1,) int32 run offsets of the sorted e1.
+extern "C" int m3g_fused_triplet_gate_sum(const void* basis, const void* gate, const void* off1,
+                                          const void* e2, void* out, int rows, int num_edges,
+                                          int num_trip, int members, long long basis_stride,
+                                          long long gate_stride, void* stream) {
   if (members < 1) return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(basis);
   const float* gt = static_cast<const float*>(gate);
-  const int* i1 = static_cast<const int*>(e1);
+  const int* off = static_cast<const int*>(off1);
   const int* i2 = static_cast<const int*>(e2);
-  int* off = static_cast<int*>(offsets);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {

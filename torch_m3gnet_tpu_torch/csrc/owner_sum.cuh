@@ -36,7 +36,7 @@
 
 #include <cuda_runtime.h>
 
-#include "segment_offsets.cuh"
+#include "cp_async.cuh"
 
 namespace {
 

@@ -10,20 +10,19 @@
 // transposed (F, E) buffer gives the TPU. seg (M,) is int32, sorted
 // ascending, with values in [0, S).
 //
-// What bounds it: memory. It moves (F*M + M + F*S) * 4 bytes and does F*M
-// adds. At the bench point the node aggregation (F = 64, M = 147,456,
-// S = 3,584) moves 39.3 MB and the gather-mode triplet->edge sum (F = 9,
-// M = 1,057,792, S = 147,456) 47.6 MB.
+// What bounds it: memory. It moves (F*M + S + 1 + F*S) * 4 bytes and does
+// F*M adds. At the bench point the node aggregation (F = 64, M = 147,456,
+// S = 3,584) moves 38.7 MB and the gather-mode triplet->edge sum (F = 9,
+// M = 1,057,792, S = 147,456) 44.0 MB.
 //
 // What the design does about it: no atomics and a fixed summation order, so
 // two calls on the same inputs give the same bits (index_add does not).
-//   1. segment_offsets (segment_offsets.cuh, shared with q_scatter and
-//      fused_triplet_gate_sum): each boundary m in [0, M] writes offsets[s]
-//      = first m with seg[m] >= s for every s in (seg[m-1], seg[m]], so
-//      each of the S + 1 offsets is written exactly once and no thread
-//      searches. The model's sums by edge_src and triplet_e1 take these
-//      offsets from the batch instead (built once per batch by to_torch),
-//      which saves the pass and its launch on every call.
+//   1. The caller passes seg's run offsets (S + 1,): offsets[s] = the first
+//      m with seg[m] >= s, so segment s owns [offsets[s], offsets[s+1]) and
+//      no thread searches. They are a property of the batch, built once per
+//      batch on the device (data.to_torch for edge_src and triplet_e1,
+//      Potential.assemble for the strain stress's edge_graph), so the
+//      kernel reads neither seg nor a pass of its own.
 //   2. The sums, chosen from the shapes only (so the same call always takes
 //      the same path):
 //      - segment_sum_tiled<R>: one block per (R rows, sb consecutive
@@ -62,15 +61,14 @@
 // no counterpart here: every output element is written once, by one owner.
 //
 // Interface: plain C, loaded with ctypes. The entry point launches on the
-// given stream of the current device, allocates nothing (the caller passes
-// an (S + 1,) int32 scratch for the offsets), and returns cudaGetLastError().
+// given stream of the current device, allocates nothing, and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "owner_sum.cuh"
-#include "segment_offsets.cuh"
 
 namespace {
 
@@ -152,26 +150,21 @@ void launch_tiled(const float* x, const int* off, float* o, int rows, int m_len,
 #define M3G_CASE_TILED(R_) \
   case R_: launch_tiled<R_>(x, off, o, rows, m_len, num_segments, sb, vec, s); break;
 
-// sorted_segment_sum(data (rows, m_len), seg (m_len,)) -> out (rows,
-// num_segments). offsets is (num_segments + 1,) int32: with offsets_given
-// it holds seg's offsets already (the batch's, built once per batch) and
-// the offsets pass is skipped; otherwise it is a scratch that the pass
-// fills. Every output element is written, empty segments with 0.
+// sorted_segment_sum(data (rows, m_len)) -> out (rows, num_segments), by
+// the run offsets (num_segments + 1,) int32 of the sorted segment ids.
+// Every output element is written, empty segments with 0.
 // tile_rows divides rows: the rows of one member when several members'
 // rows are folded into one call (a committee). The tiled sum picks its
 // shape for tile_rows, so that a block never straddles two members and
 // each member is summed in the order of a call with tile_rows rows.
-extern "C" int m3g_sorted_segment_sum(const void* data, const void* seg, void* offsets,
-                                      void* out, int rows, int m_len, int num_segments,
-                                      int offsets_given, int tile_rows, void* stream) {
+extern "C" int m3g_sorted_segment_sum(const void* data, const void* offsets, void* out, int rows,
+                                      int m_len, int num_segments, int tile_rows, void* stream) {
   if (rows <= 0 || num_segments <= 0 || m_len < 0 || tile_rows <= 0 || rows % tile_rows != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(data);
-  int* off = static_cast<int*>(offsets);
+  const int* off = static_cast<const int*>(offsets);
   float* o = static_cast<float*>(out);
-  if (!offsets_given)
-    launch_segment_offsets(static_cast<const int*>(seg), off, m_len, num_segments, s);
   if (m_len / num_segments > kLongRun) {
     for (int r0 = 0; r0 < rows; r0 += kMaxGridY)
       segment_sum_block<<<dim3(num_segments, min(rows - r0, kMaxGridY)), kBlock, 0, s>>>(

@@ -39,8 +39,8 @@
 //     its run and writes its outputs once, empty edges 0: no memset, no
 //     atomics, and the same bits on every call. It reads vals, offsets (and
 //     the order) once and writes out once: 19.9 MB by e1 and 24.1 MB by e2
-//     at the bench point. On an H100 (tools/windowed_scatter_designs.py;
-//     PERF.md) the e2 call is fastest with 128-edge blocks and eight
+//     at the bench point. On an H100 (PERF.md; the designs that lost are
+//     in CHANGES.md) the e2 call is fastest with 128-edge blocks and eight
 //     triplets a thread a pass: a block's span (~900 triplets) then mostly
 //     fits one chunk, and the whole grid stays resident. The e1 call is
 //     fastest at 256. Gathering each owner's run by depth (coalesced, but

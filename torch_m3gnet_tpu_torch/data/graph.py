@@ -88,13 +88,13 @@ class GraphBatch:
     edge_reverse: Optional[Any] = None  # (E,) i32
 
     # The per-batch index of the kernels, built by to_torch once per batch
-    # (None on the host), each part only where the model's mode reads it:
-    # the run offsets of the sorted edge_src and triplet_e1
-    # (ops.sorted_segment.sorted_segment_offsets), with which the sorted
-    # segment sums by them skip their offsets pass, and the e2 order
-    # (ops.fused_triplet.triplet_e2_order), which the fused stage's backward
-    # kernel sums dG by: the stable permutation that sorts triplet_e2, and
-    # each edge's run [off[e], off[e+1]) of it.
+    # (None on the host), each part only where the model's mode reads it,
+    # and the only source of them: the run offsets of the sorted edge_src
+    # and triplet_e1 (ops.sorted_segment.sorted_segment_offsets), along
+    # which every sorted kernel sums by them, and the e2 order
+    # (ops.fused_triplet.triplet_e2_order), along which the kernels sum by
+    # triplet_e2: the stable permutation that sorts triplet_e2, and each
+    # edge's run [off[e], off[e+1]) of it.
     edge_src_offsets: Optional[Any] = None  # (N + 1,) i32
     triplet_e1_offsets: Optional[Any] = None  # (E + 1,) i32
     triplet_e2_order: Optional[Any] = None  # (T,) i32

@@ -65,9 +65,8 @@ from torch.nn import functional as F
 from torch_m3gnet_tpu_torch.data.graph import GraphBatch
 from torch_m3gnet_tpu_torch.models.layers import DenseFM, Embed, NormGatedMLPFM
 from torch_m3gnet_tpu_torch.ops.basis import bessel_rbf_fm, fourier_basis_fm
-from torch_m3gnet_tpu_torch.ops.fused_triplet import triplet_e2_order
 from torch_m3gnet_tpu_torch.ops.segment import segment_sum, take_fm
-from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_offsets, sorted_segment_sum_fm
+from torch_m3gnet_tpu_torch.ops.sorted_segment import sorted_segment_sum_fm
 from torch_m3gnet_tpu_torch.ops.windowed_take import windowed_scatter_fm, windowed_take_fm
 from torch_m3gnet_tpu_torch.utils.profiling import span
 
@@ -199,13 +198,10 @@ class CHGNet(nn.Module):
         w_ag = self.bond_weights_ag(rbf_ag) * edge_mask
         w_bg = self.bond_weights_bg(self.rbf_bg(dist)) * edge_mask
 
-        # --- the bond graph: the owners of e1 (its offsets; e1 is sorted) and
-        # of e2 (the e2 order), built here for a batch that lacks them.
-        own1 = (None, graph.triplet_e1_offsets if graph.triplet_e1_offsets is not None
-                else sorted_segment_offsets(e1, num_edges))
+        # --- the bond graph: the batch's owners of e1 (its offsets; e1 is
+        # sorted) and of e2 (the e2 order)
+        own1 = (None, graph.triplet_e1_offsets)
         own2 = (graph.triplet_e2_order, graph.triplet_e2_offsets)
-        if own2[0] is None or own2[1] is None:
-            own2 = triplet_e2_order(e2, num_edges)
 
         def at_angles(x_fm):  # (F, E) -> the rows of each angle's two bonds, (F, T) each
             return windowed_take_fm(x_fm, e1, own1), windowed_take_fm(x_fm, e2, own2)

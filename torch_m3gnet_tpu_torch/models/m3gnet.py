@@ -85,7 +85,7 @@ from torch_m3gnet_tpu_torch.ops.basis import (
     spherical_bessel_zeros,
 )
 from torch_m3gnet_tpu_torch.ops.factorized_stage import q_scatter, r1_gather
-from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum, triplet_e2_order
+from torch_m3gnet_tpu_torch.ops.fused_triplet import fused_triplet_gate_sum
 from torch_m3gnet_tpu_torch.ops.halo import (
     all_reduce,
     extend_nodes_fm,
@@ -219,9 +219,10 @@ class M3GNet(nn.Module):
     @property
     def batch_index(self) -> tuple[str, ...]:
         """The parts of the per-batch kernel index (``data.to_torch``) that
-        this mode reads: the ``edge_src`` offsets in every mode (the node
-        aggregation and the forces), the ``triplet_e1`` offsets in the
-        gather and fused modes, the e2 order in the fused mode."""
+        this mode reads, and the only source of them: the ``edge_src``
+        offsets in every mode (the node aggregation, the forces and the
+        factorized stage), the ``triplet_e1`` offsets in the gather and
+        fused modes, the e2 order in the fused mode."""
         extra = {"gather": ("triplet_e1_offsets",),
                  "fused": ("triplet_e1_offsets", "triplet_e2_order", "triplet_e2_offsets")}
         return ("edge_src_offsets",) + extra.get(self.threebody_mode, ())
@@ -310,7 +311,7 @@ class M3GNet(nn.Module):
         ln, num_edges = l_max * n_max, graph.num_edges
         rc = self.cutoff / self.length_scale
         rc3 = self.threebody_cutoff / self.length_scale
-        src, dst = graph.edge_src, graph.edge_dst
+        src, dst, src_offsets = graph.edge_src, graph.edge_dst, graph.edge_src_offsets
         u_fm = r_fm / dist[None, :]  # padded edges: dist = rc > 0
         sh_fm = real_racah_harmonics_fm(u_fm, l_max)  # (M, E)
         chi_fm = normalized_spherical_bessel(dist, rc, l_max, n_max,
@@ -326,9 +327,9 @@ class M3GNet(nn.Module):
             # adds nothing to A and its own output is scaled by fcn = 0.
             g = chifc * take_dst_fm(gate_fm, graph, dst, group).to(cdtype)  # (ln, E)
             # One cast per kernel operand, as each JAX wrapper casts its own.
-            a = q_scatter(sh_fm.to(dtype), g.to(dtype), src, graph.num_nodes,
+            a = q_scatter(sh_fm.to(dtype), g.to(dtype), src, src_offsets, graph.num_nodes,
                           l_max, n_max)  # (M*n, N)
-            proj = r1_gather(a, sh_fm.to(dtype), src, l_max, n_max)  # (ln, E)
+            proj = r1_gather(a, sh_fm.to(dtype), src, src_offsets, l_max, n_max)  # (ln, E)
             return fcn * (proj.to(cdtype) - g)
 
         return triplet_aggregate
@@ -352,17 +353,12 @@ class M3GNet(nn.Module):
 
         # T-scale geometry from the packed [x, y, z, |r|] rows of each edge.
         geom_fm = torch.cat([r_fm, dist[None, :]], 0)  # (4, E)
+        e1_offsets = graph.triplet_e1_offsets
         if fused:
             # The batch's owners of e1 (its offsets; e1 is sorted) and of e2
-            # (the e2 order), built here for a batch that lacks them: the
-            # takes' VJPs sum along them, and so does the backward kernel's
-            # sum by e2.
-            e1_offsets = graph.triplet_e1_offsets
-            if e1_offsets is None:
-                e1_offsets = sorted_segment_offsets(e1, num_edges)
+            # (the e2 order): the takes' VJPs sum along them, and so do the
+            # stage's kernels.
             e2_order = (graph.triplet_e2_order, graph.triplet_e2_offsets)
-            if e2_order[0] is None or e2_order[1] is None:
-                e2_order = triplet_e2_order(e2, num_edges)
             g1 = windowed_take_fm(geom_fm, e1, (None, e1_offsets))  # (4, T)
             g2 = windowed_take_fm(geom_fm, e2, e2_order)
         else:
@@ -384,14 +380,13 @@ class M3GNet(nn.Module):
             # it, for the backward kernel's sum by e2.
             return lambda gate_fm: fused_triplet_gate_sum(
                 basis_c.to(r_fm.dtype), take_dst_fm(gate_fm, graph, dst, group), e1, e2,
-                num_edges, e2_order
+                num_edges, e1_offsets, e2_order
             ).to(cdtype)
         node_k = graph.triplet_node_k
         if node_k is None:
             node_k = dst.index_select(0, e2)
         return lambda gate_fm: sorted_segment_sum_fm(
-            basis_c * take_dst_fm(gate_fm, graph, node_k, group), e1, num_edges,
-            graph.triplet_e1_offsets
+            basis_c * take_dst_fm(gate_fm, graph, node_k, group), e1, num_edges, e1_offsets
         )
 
 
@@ -494,9 +489,13 @@ class Potential(nn.Module):
             (lattice[:, 0] * torch.linalg.cross(lattice[:, 1], lattice[:, 2])).sum(-1)
         )
         if self.stress_mode == "strain":
+            # edge_graph is no batch field: its offsets are built here, once
+            # per request (sorted, as node_graph is, to_torch checks)
             edge_graph = graph.node_graph.index_select(0, src)
             outer_fm = (r_fm[:, None, :] * g_fm[None, :, :]).reshape(9, -1)
-            per_graph = sorted_segment_sum_fm(outer_fm, edge_graph, nb).t().reshape(-1, 3, 3)
+            per_graph = sorted_segment_sum_fm(
+                outer_fm, edge_graph, nb, sorted_segment_offsets(edge_graph, nb)
+            ).t().reshape(-1, 3, 3)
         else:
             outer = positions[:, :, None] * forces[:, None, :]  # (N, 3, 3)
             per_graph = segment_sum(outer.reshape(-1, 9), graph.node_graph, nb).reshape(-1, 3, 3)

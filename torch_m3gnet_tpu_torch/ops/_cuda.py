@@ -30,10 +30,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry point -> argument types; every entry returns cudaError_t as int
 # and takes the stream last.
 _ENTRIES = {
-    # (sh, gm, src, offsets scratch, out, num_edges, num_nodes, l_max, n_max,
-    #  members, sh member stride, gm member stride, stream); a stride of 0:
-    #  the operand is shared by every member
-    "m3g_q_scatter": [_P] * 5 + [_I] * 5 + [_L] * 2 + [_P],
+    # (sh, gm, src offsets, out, num_edges, num_nodes, l_max, n_max, members,
+    #  sh member stride, gm member stride, stream); a stride of 0: the
+    #  operand is shared by every member
+    "m3g_q_scatter": [_P] * 4 + [_I] * 5 + [_L] * 2 + [_P],
     # (in0, in1, src, out, num_edges, num_nodes, l_max, n_max, members,
     #  in0 member stride, in1 member stride, stream)
     "m3g_r1_gather": [_P] * 4 + [_I] * 5 + [_L] * 2 + [_P],
@@ -42,15 +42,15 @@ _ENTRIES = {
     "m3g_windowed_take": [_P] * 3 + [_I] * 3 + [_P],
     # (vals, order or NULL, offsets, out, rows, num_cols, num_idx, stream)
     "m3g_windowed_scatter": [_P] * 4 + [_I] * 3 + [_P],
-    # (basis, gate, e1, e2, offsets scratch, out, rows, num_edges, num_trip,
-    #  members, basis member stride, gate member stride, stream)
-    "m3g_fused_triplet_gate_sum": [_P] * 6 + [_I] * 4 + [_L] * 2 + [_P],
+    # (basis, gate, e1 offsets, e2, out, rows, num_edges, num_trip, members,
+    #  basis member stride, gate member stride, stream)
+    "m3g_fused_triplet_gate_sum": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_P],
     # (basis, gate, g, e1, e2, e2 order, e2 offsets, d_basis, d_gate, rows,
     #  num_edges, num_trip, members, basis, gate and g member strides, stream)
     "m3g_backward_pair": [_P] * 9 + [_I] * 4 + [_L] * 3 + [_P],
-    # (data, seg, offsets (given or scratch), out, rows, num_rows_m, num_segments,
-    #  offsets given, rows of one member, stream)
-    "m3g_sorted_segment_sum": [_P] * 4 + [_I] * 5 + [_P],
+    # (data, seg offsets, out, rows, num_rows_m, num_segments, rows of one
+    #  member, stream)
+    "m3g_sorted_segment_sum": [_P] * 3 + [_I] * 4 + [_P],
     # (host table of (pointer, length, bound, element bytes, sort mask, range
     #  mask) int64 rows, rows, word, stream)
     "m3g_check_batch_index": [_P, _I, _P, _P],
@@ -146,6 +146,18 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def check_index(name: str, label: str, t, length: int) -> None:
+    """Raise ``ValueError`` unless ``t`` is a 1-D index of ``length``
+    entries: the run offsets or the order that a sorted op takes from the
+    batch (``data.to_torch`` builds them once per batch). It runs on every
+    path, so that a CPU run catches a caller that forgets them."""
+    if t is None:
+        raise ValueError(f"{name}: {label} is required: the batch carries it "
+                         f"(data.to_torch builds it)")
+    if tuple(t.shape) != (length,):
+        raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, expected ({length},)")
 
 
 def is_cuda(name: str, floats, indices) -> bool:

@@ -11,16 +11,17 @@ and its VJP, itself a first-class op:
     dB[:, t] = g[:, e1[t]] * gate_e[:, e2[t]]                        (LN, T)
     dG[:, e] = sum_{t: e2[t]=e} g[:, e1[t]] * basis[:, t]            (LN, E)
 
-``e1`` (the triplet's i->j edge) is int32, sorted ascending, in [0, E): the
-forward kernel takes each edge's run of triplets from an offsets pass over
-it. ``e2`` (the i->k edge) is int32 in [0, E), unsorted. Padded triplets
-carry zero basis. The backward kernel sums ``dG`` by ``e2`` through the
-batch's e2 order, ``e2_order = (order, offsets)`` from
-:func:`triplet_e2_order`: a property of the batch, which ``data.to_torch``
-builds once per batch for the fused mode (``GraphBatch.triplet_e2_order`` /
-``triplet_e2_offsets``) and the model passes in; the forward keeps it for
-the backward and the double backward. Both ops take it; the plain
-versions do not read it.
+``e1`` (the triplet's i->j edge) is int32, sorted ascending, in [0, E).
+``e2`` (the i->k edge) is int32 in [0, E), unsorted. Padded triplets carry
+zero basis. Both ops take the batch's index of the two, which
+``data.to_torch`` builds once per batch for the fused mode and the model
+passes in: ``e1_offsets`` (E + 1,), the run offsets of ``e1``
+(``GraphBatch.triplet_e1_offsets``), along which the forward kernel sums
+each edge's triplets, and ``e2_order = (order, offsets)`` from
+:func:`triplet_e2_order` (``GraphBatch.triplet_e2_order`` /
+``triplet_e2_offsets``), along which the backward kernel sums ``dG`` by
+``e2``. Each op keeps both for the other, in the backward and the double
+backward; the plain versions read neither.
 
 Each op has a hand-written CUDA kernel (``csrc/fused_triplet.cu``), a plain
 torch version (``*_plain``) and an ``autograd.Function``. The Function runs
@@ -86,8 +87,8 @@ def triplet_e2_order(e2: torch.Tensor, num_edges: int) -> tuple[torch.Tensor, to
     ``_prep`` computes its tiles' window bounds."""
     sorted_e2, order = torch.sort(e2, stable=True)
     edges = torch.arange(num_edges + 1, dtype=sorted_e2.dtype, device=e2.device)
-    offsets = torch.searchsorted(sorted_e2, edges)
-    return order.to(torch.int32), offsets.to(torch.int32)
+    offsets = torch.searchsorted(sorted_e2, edges, out_int32=True)
+    return order.to(torch.int32), offsets
 
 
 # ---------------------------------------------------------------------------
@@ -95,21 +96,20 @@ def triplet_e2_order(e2: torch.Tensor, num_edges: int) -> tuple[torch.Tensor, to
 # ---------------------------------------------------------------------------
 
 
-def _check(name, e1, e2, num_edges, pairs, order, off2):
-    """Validate the shapes (every path): each float operand (rows, cols) or
-    (K, rows, cols), one K for all. Returns (K or None, True when the
-    operands are on CUDA, False for the CPU path)."""
+def _check(name, e1, e2, num_edges, pairs, off1, order, off2):
+    """Validate the shapes (every path): the batch's index of e1 and e2, and
+    each float operand (rows, cols) or (K, rows, cols), one K for all.
+    Returns (K or None, True when the operands are on CUDA, False for the
+    CPU path)."""
     t = e1.shape[0] if e1.dim() == 1 else -1
     if e1.dim() != 1 or tuple(e2.shape) != (t,):
         raise ValueError(
             f"{name}: e1 and e2 must be 1-D of one length, got "
             f"{tuple(e1.shape)} and {tuple(e2.shape)}"
         )
-    if tuple(order.shape) != (t,) or tuple(off2.shape) != (num_edges + 1,):
-        raise ValueError(
-            f"{name}: the e2 order must be ({t},) and ({num_edges + 1},), got "
-            f"{tuple(order.shape)} and {tuple(off2.shape)}"
-        )
+    for label, x, length in (("e1 offsets", off1, num_edges + 1), ("e2 order", order, t),
+                             ("e2 offsets", off2, num_edges + 1)):
+        _cuda.check_index(name, label, x, length)
     k = _vmap.members(name, [(label, x) for label, x, _ in pairs])
     rows = pairs[0][1].shape[-2]
     for label, x, cols in pairs:
@@ -117,7 +117,8 @@ def _check(name, e1, e2, num_edges, pairs, order, off2):
         if tuple(x.shape[-2:]) != want:
             raise ValueError(f"{name}: {label} has shape {tuple(x.shape)}, expected "
                              f"([K,] {want[0]}, {want[1]})")
-    indices = [("e1", e1), ("e2", e2), ("e2 order", order), ("e2 offsets", off2)]
+    indices = [("e1", e1), ("e2", e2), ("e1 offsets", off1), ("e2 order", order),
+               ("e2 offsets", off2)]
     return k, _cuda.is_cuda(name, [(label, x) for label, x, _ in pairs], indices)
 
 
@@ -126,10 +127,10 @@ def _rows(name, rows):
         raise ValueError(f"{name}: the CUDA kernel is built for 1..{KERNEL_MAX_ROWS} rows, got {rows}")
 
 
-def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, off1, order, off2):
     name = "fused_triplet_gate_sum"
     pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E")]
-    k, cuda = _check(name, e1, e2, num_edges, pairs, order, off2)
+    k, cuda = _check(name, e1, e2, num_edges, pairs, off1, order, off2)
     if not cuda:
         return _vmap.per_member(fused_triplet_gate_sum_plain, k, (basis_fm, gate_e_fm),
                                 (e1, e2, num_edges))
@@ -140,18 +141,16 @@ def _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
     (b, b_stride), (g, g_stride) = (_vmap.kernel_operand(x) for x in (basis_fm, gate_e_fm))
-    # the offsets pass runs once for every member: e1 is shared
-    offsets = torch.empty(num_edges + 1, dtype=torch.int32, device=out.device)
     _cuda.launch(name, "m3g_fused_triplet_gate_sum", out.device,
-                 b.data_ptr(), g.data_ptr(), e1.data_ptr(), e2.data_ptr(), offsets.data_ptr(),
-                 out.data_ptr(), rows, num_edges, t, k or 1, b_stride, g_stride)
+                 b.data_ptr(), g.data_ptr(), off1.data_ptr(), e2.data_ptr(), out.data_ptr(),
+                 rows, num_edges, t, k or 1, b_stride, g_stride)
     return out
 
 
-def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order, off2):
     name = "backward_pair"
     pairs = [("basis", basis_fm, "T"), ("gate_e", gate_e_fm, "E"), ("g", g, "E")]
-    k, cuda = _check(name, e1, e2, num_edges, pairs, order, off2)
+    k, cuda = _check(name, e1, e2, num_edges, pairs, off1, order, off2)
     if not cuda:
         return _vmap.per_member(backward_pair_plain, k, (basis_fm, gate_e_fm, g),
                                 (e1, e2, num_edges))
@@ -178,79 +177,83 @@ def _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
 
 class FusedTripletGateSum(torch.autograd.Function):
     @staticmethod
-    def forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
-        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
+    def forward(basis_fm, gate_e_fm, e1, e2, num_edges, off1, order, off2):
+        return _forward(basis_fm, gate_e_fm, e1, e2, num_edges, off1, order, off2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        basis_fm, gate_e_fm, e1, e2, num_edges, order, off2 = inputs
-        ctx.save_for_backward(basis_fm, gate_e_fm, e1, e2, order, off2)
+        basis_fm, gate_e_fm, e1, e2, num_edges, off1, order, off2 = inputs
+        ctx.save_for_backward(basis_fm, gate_e_fm, e1, e2, off1, order, off2)
         ctx.num_edges = num_edges
 
     @staticmethod
     def backward(ctx, g):
-        basis_fm, gate_e_fm, e1, e2, order, off2 = ctx.saved_tensors
+        basis_fm, gate_e_fm, e1, e2, *index = ctx.saved_tensors
         d_basis, d_gate = BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, ctx.num_edges,
-                                             order, off2)
+                                             *index)
         return (_vmap.reduce_to(d_basis, basis_fm), _vmap.reduce_to(d_gate, gate_e_fm),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, basis_fm, gate_e_fm, e1, e2, num_edges, order, off2):
+    def vmap(info, in_dims, basis_fm, gate_e_fm, e1, e2, num_edges, off1, order, off2):
         _vmap.shared_index("fused_triplet_gate_sum", in_dims,
-                           {"e1": 2, "e2": 3, "e2 order": 5, "e2 offsets": 6})
+                           {"e1": 2, "e2": 3, "e1 offsets": 5, "e2 order": 6, "e2 offsets": 7})
         basis_fm, gate_e_fm = _vmap.batch_first("fused_triplet_gate_sum", in_dims[:2],
                                                 (basis_fm, gate_e_fm))
-        return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2), 0
+        return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, off1, order,
+                                         off2), 0
 
 
 class BackwardPair(torch.autograd.Function):
     @staticmethod
-    def forward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
-        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)
+    def forward(basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order, off2):
+        return _backward(basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order, off2)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2 = inputs
-        ctx.save_for_backward(basis_fm, gate_e_fm, g, e1, e2, order, off2)
+        basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order, off2 = inputs
+        ctx.save_for_backward(basis_fm, gate_e_fm, g, e1, e2, off1, order, off2)
         ctx.num_edges = num_edges
 
     @staticmethod
     def backward(ctx, u_b, u_g):
-        basis_fm, gate_e_fm, g, e1, e2, order, off2 = ctx.saved_tensors
+        basis_fm, gate_e_fm, g, e1, e2, *index = ctx.saved_tensors
         e = ctx.num_edges
         # d/dB <u_g, dG> = g[:, e1] * u_g[:, e2] and d/dG <u_b, dB> =
         # scatter_e2(g[:, e1] * u_b): one backward_pair call with (u_b, u_g).
-        g_basis, g_gate = BackwardPair.apply(u_b, u_g, g, e1, e2, e, order, off2)
+        g_basis, g_gate = BackwardPair.apply(u_b, u_g, g, e1, e2, e, *index)
         g_g = None
         if ctx.needs_input_grad[2]:
-            g_g = (FusedTripletGateSum.apply(u_b, gate_e_fm, e1, e2, e, order, off2)
-                   + FusedTripletGateSum.apply(basis_fm, u_g, e1, e2, e, order, off2))
+            g_g = (FusedTripletGateSum.apply(u_b, gate_e_fm, e1, e2, e, *index)
+                   + FusedTripletGateSum.apply(basis_fm, u_g, e1, e2, e, *index))
         return (_vmap.reduce_to(g_basis, basis_fm), _vmap.reduce_to(g_gate, gate_e_fm),
-                _vmap.reduce_to(g_g, g), None, None, None, None, None)
+                _vmap.reduce_to(g_g, g), None, None, None, None, None, None)
 
     @staticmethod
-    def vmap(info, in_dims, basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2):
+    def vmap(info, in_dims, basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order, off2):
         _vmap.shared_index("backward_pair", in_dims,
-                           {"e1": 3, "e2": 4, "e2 order": 6, "e2 offsets": 7})
+                           {"e1": 3, "e2": 4, "e1 offsets": 6, "e2 order": 7, "e2 offsets": 8})
         basis_fm, gate_e_fm, g = _vmap.batch_first("backward_pair", in_dims[:3],
                                                    (basis_fm, gate_e_fm, g))
-        return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2), (0, 0)
+        return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, off1, order,
+                                  off2), (0, 0)
 
 
-def fused_triplet_gate_sum(basis_fm, gate_e_fm, e1, e2, num_edges: int,
+def fused_triplet_gate_sum(basis_fm, gate_e_fm, e1, e2, num_edges: int, e1_offsets,
                            e2_order) -> torch.Tensor:
     """out[:, e] = sum_{t: e1[t]=e} basis[:, t] * gate_e[:, e2[t]]: (LN, T),
-    (LN, E), sorted int32 e1 (T,), int32 e2 (T,) -> (LN, num_edges).
-    ``e2_order``: the batch's :func:`triplet_e2_order`, kept for the
-    backward."""
-    order, off2 = e2_order
-    return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, order, off2)
+    (LN, E), sorted int32 e1 (T,), int32 e2 (T,) -> (LN, num_edges), along
+    the batch's ``e1_offsets``; ``e2_order``: the batch's
+    :func:`triplet_e2_order`, kept for the backward."""
+    order, off2 = e2_order or (None, None)
+    return FusedTripletGateSum.apply(basis_fm, gate_e_fm, e1, e2, num_edges, e1_offsets, order,
+                                     off2)
 
 
-def backward_pair(basis_fm, gate_e_fm, g, e1, e2, num_edges: int, e2_order):
+def backward_pair(basis_fm, gate_e_fm, g, e1, e2, num_edges: int, e1_offsets, e2_order):
     """(dB, dG) of :func:`fused_triplet_gate_sum` for the output cotangent
-    ``g`` (LN, E): dB (LN, T), dG (LN, num_edges). ``e2_order``: the
-    batch's :func:`triplet_e2_order`, along which the kernel sums dG."""
-    order, off2 = e2_order
-    return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, order, off2)
+    ``g`` (LN, E): dB (LN, T), dG (LN, num_edges), dG summed along the
+    batch's :func:`triplet_e2_order` ``e2_order``; ``e1_offsets`` is kept
+    for the double backward."""
+    order, off2 = e2_order or (None, None)
+    return BackwardPair.apply(basis_fm, gate_e_fm, g, e1, e2, num_edges, e1_offsets, order, off2)

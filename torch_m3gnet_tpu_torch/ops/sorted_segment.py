@@ -9,12 +9,11 @@ and ``sorted_segment_sum_any``, one function):
 ``seg`` is int32, sorted ascending, in [0, S). The model sends its sorted
 sums here: the node aggregation and the forces by ``edge_src``, the
 gather-mode triplet->edge sum by ``triplet_e1``, and the strain stress by
-``edge_graph``. ``offsets`` (S + 1,), the run offsets of ``seg``
-(:func:`sorted_segment_offsets`), is optional: the batch carries those of
-``edge_src`` and, in the gather mode, ``triplet_e1`` (``data.to_torch``
-builds them once per batch), and with them the kernel skips its own
-offsets pass; the plain
-version does not read them.
+``edge_graph``. Every call takes ``offsets`` (S + 1,), the run offsets of
+``seg`` (:func:`sorted_segment_offsets`), along which the kernel sums: the
+batch carries those of ``edge_src`` and ``triplet_e1`` (``data.to_torch``
+builds them once per batch), and ``Potential.assemble`` builds those of
+``edge_graph``. The plain version does not read them.
 
 The op has a hand-written CUDA kernel (``csrc/sorted_segment.cu``: no
 atomics, a fixed summation order, so two calls give the same bits), a plain
@@ -49,10 +48,11 @@ def sorted_segment_sum_fm_plain(data_fm: torch.Tensor, seg: torch.Tensor,
 def sorted_segment_offsets(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(num_segments + 1,) int32 on ``seg``'s device: offsets[s] = the first m
     with seg[m] >= s, so segment s owns [offsets[s], offsets[s + 1]) of the
-    sorted ``seg``; what the kernel's offsets pass computes, here once per
-    batch (one device search)."""
+    sorted ``seg``. One device search; the one function that makes the
+    sorted ops' run offsets (``data.to_torch`` once per batch,
+    ``Potential.assemble`` once per request for the strain stress)."""
     bounds = torch.arange(num_segments + 1, dtype=seg.dtype, device=seg.device)
-    return torch.searchsorted(seg, bounds).to(torch.int32)
+    return torch.searchsorted(seg, bounds, out_int32=True)
 
 
 def _forward(data_fm, seg, num_segments, offsets):
@@ -63,30 +63,21 @@ def _forward(data_fm, seg, num_segments, offsets):
         raise ValueError(
             f"{name}: data has shape {tuple(data_fm.shape)}, expected ([K,] F, {seg.shape[0]})"
         )
-    indices = [("seg", seg)]
-    if offsets is not None:
-        if tuple(offsets.shape) != (num_segments + 1,):
-            raise ValueError(f"{name}: offsets has shape {tuple(offsets.shape)}, "
-                             f"expected ({num_segments + 1},)")
-        indices.append(("offsets", offsets))
+    _cuda.check_index(name, "offsets", offsets, num_segments + 1)
     # The member axis folds into the rows: the sum is row-parallel, the index shared.
     lead, (f, m) = data_fm.shape[:-2], data_fm.shape[-2:]
     rows = data_fm.reshape(-1, m)
-    if not _cuda.is_cuda(name, [("data", data_fm)], indices):
+    if not _cuda.is_cuda(name, [("data", data_fm)], [("seg", seg), ("offsets", offsets)]):
         return sorted_segment_sum_fm_plain(rows, seg, num_segments).reshape(*lead, f, num_segments)
     dev = data_fm.device
     out = torch.empty((*lead, f, num_segments), dtype=torch.float32, device=dev)
     if out.numel() == 0:  # nothing to compute: a zero-size grid is an error
         return out
     rows = rows.contiguous()
-    given = offsets is not None
-    if not given:
-        offsets = torch.empty(num_segments + 1, dtype=torch.int32, device=dev)
     # The kernel tiles the rows as for one member's f, so that each member
     # is summed in the order of a call on its own.
-    _cuda.launch(name, "m3g_sorted_segment_sum", dev, rows.data_ptr(),
-                 seg.data_ptr(), offsets.data_ptr(), out.data_ptr(), rows.shape[0], m,
-                 num_segments, int(given), f)
+    _cuda.launch(name, "m3g_sorted_segment_sum", dev, rows.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), rows.shape[0], m, num_segments, f)
     return out
 
 
@@ -117,6 +108,7 @@ class SortedTake(torch.autograd.Function):
     def forward(x_fm, seg, offsets):
         if x_fm.dim() not in (2, 3):
             raise ValueError(f"sorted_take: x has shape {tuple(x_fm.shape)}, expected ([K,] F, S)")
+        _cuda.check_index("sorted_take", "offsets", offsets, x_fm.shape[-1] + 1)
         return x_fm.index_select(-1, seg)
 
     @staticmethod
@@ -138,16 +130,15 @@ class SortedTake(torch.autograd.Function):
 
 
 def sorted_segment_sum_fm(data_fm: torch.Tensor, seg: torch.Tensor, num_segments: int,
-                          offsets: torch.Tensor | None = None) -> torch.Tensor:
+                          offsets: torch.Tensor) -> torch.Tensor:
     """out[..., s] = sum_{m: seg[m]=s} data_fm[..., m]: ([K,] F, M), sorted
-    int32 (M,) in [0, num_segments) -> ([K,] F, num_segments).
-    ``offsets``: seg's
-    :func:`sorted_segment_offsets`, if the caller has them."""
+    int32 (M,) in [0, num_segments) -> ([K,] F, num_segments), along seg's
+    :func:`sorted_segment_offsets` ``offsets``."""
     return SortedSegmentSum.apply(data_fm, seg, num_segments, offsets)
 
 
 def sorted_take_fm(x_fm: torch.Tensor, seg: torch.Tensor,
-                   offsets: torch.Tensor | None = None) -> torch.Tensor:
+                   offsets: torch.Tensor) -> torch.Tensor:
     """out[:, m] = x_fm[:, seg[m]], the VJP of :func:`sorted_segment_sum_fm`;
-    its own VJP is that segment sum (with ``offsets``, as there)."""
+    its own VJP is that segment sum (along ``offsets``, as there)."""
     return SortedTake.apply(x_fm, seg, offsets)

@@ -187,7 +187,8 @@ def phonon_dispersion(
     masses = np.asarray(masses_amu, dtype=np.float64).reshape(n_prim)
     sc = primitive.supercell(reps)
     batch = cast_batch(
-        pack_structures([sc], cutoff, threebody_cutoff, pad_multiple=pad_multiple),
+        pack_structures([sc], cutoff, threebody_cutoff, pad_multiple=pad_multiple,
+                        bond_pairs="edge_reverse" in potential.model.batch_index),
         np.float64,
     )
     phi = force_constants(potential, batch)  # (N, 3, N, 3)
